@@ -1,43 +1,69 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's main path on one NVIDIA GPU and check it.
+"""Drive the PyTorch port's main paths on one NVIDIA GPU and check them.
 
     python3 chip_smoke.py        # from the repository root; one card, nvcc
 
-The main path is the `ssd_custom` DCT-SSD300 detector at inference at full
-width: `build_model("ssd300_ssd_custom")` -> forward on seeded DCT planes ->
-`make_inference_fn` (candidate selection, batched greedy NMS on the CUDA
-kernel, global top-200) -> (B, 200, 6) detections.
+Two paths, each at the full width of `ssd300_ssd_custom`:
+  * inference: `build_model` -> forward on seeded DCT planes ->
+    `make_inference_fn` (candidate selection, batched greedy NMS on the CUDA
+    kernel, global top-200) -> (B, 200, 6) detections;
+  * training: `build_trainer(ExperimentConfig(pallas_wgrad=True,
+    compute_dtype="bfloat16", batch_size=32))` with a `TargetEncoder` whose
+    greedy bipartite matching runs on the CUDA kernel, driven by `fit` for 5
+    steps; the filter gradient of every eligible 3x3 conv runs on the CUDA
+    kernel.
 
 Phases (any failure exits non-zero):
   1. card name and power limit (nvidia-smi);
-  2. build the NMS kernel from the sources in the checkout with nvcc;
-  3. the kernel against its plain PyTorch version on seeded problems at the
-     serving shape (N=640, K=400) and a ragged one (N=7, K=37), with pairs at
-     IoU exactly the threshold and zero-score slots: masks exactly equal;
-  4. the main path: a batch-32 bf16 request and a batch-1 f32 request, each
-     through the `shared` and the `exact` candidate selector, with the kernel
-     launch counter reset just before and read just after; then, on the same
-     raw predictions, kernel and plain NMS give identical detections, and the
-     f32 forward agrees with the port's CPU forward (the path the CPU tests
-     hold against the JAX package);
-  5. CUDA-event timings (median and range of 5 windows after a warm-up):
-     forward + decode at batch 32 in bf16 (images/s), the forward alone, its
-     host enqueue time and its FLOP rate, the decodes alone, the NMS kernel,
-     its plain version and its bound, at the main path's shapes;
-  6. the `kernels` JSON line, the card line, and the final JSON line.
+  2. build the three kernels from the sources in the checkout, one nvcc each,
+     all started together; print ptxas' registers, shared memory, spills;
+  3. NMS kernel against its plain version at the serving shape (N=640,
+     K=400) and a ragged one, with pairs at IoU exactly the threshold:
+     masks exactly equal;
+  4. matching kernel against its plain version on the IoUs of seeded GT
+     with the 8732 anchors at batch 32 (1-10 valid rows per image, one image
+     with 64, one with none, duplicate boxes) and on tie-heavy (5, 64, 300)
+     similarities: indices exactly equal;
+  5. filter-gradient kernel against its plain version at each of the 24
+     conv shapes of the train step at batch 32, in bf16 and float32
+     (max |got - ref| <= 1e-4 max |ref|), and against a float64 oracle;
+  6. inference: a batch-32 bf16 and a batch-1 f32 request through both
+     candidate selectors, NMS launch count read around them; kernel and
+     plain NMS give identical detections; the f32 forward agrees with the
+     port's CPU forward;
+  7. training: `fit` for 5 steps into a temporary run directory, on
+     batches whose images each carry the two GT boxes of `bench.py`'s train
+     rows; kernel launch counts reset just before and read just after
+     (matching 1 and filter gradient 24 per step); losses finite; the
+     checkpoint restores to the same step and weights;
+  8. one float32 train step at batch 2 on the card (kernels, TF32 off)
+     against the same step on the port's CPU path (plain versions) from the
+     same weights and batch: targets, loss, head gradients, updated
+     parameters; and each of the step's 24 kernel filter gradients against
+     its plain version on the same activations and output gradients;
+  9. CUDA-event timings (median and range of 5 windows): forward + decode at
+     batch 32 bf16 and its parts, the NMS kernel; the train step at batch 32
+     bf16 with both kernels and with both off (cuDNN filter gradient, plain
+     matching), interleaved; the matching kernel, its plain version and
+     bound on the train batch's IoUs, and on phase 4's as a worst case; the
+     filter-gradient kernel, its plain version, cuDNN's filter gradient and
+     the bound per shape, and their sums per step;
+ 10. the `kernels` JSON line, the card line, and the final JSON line.
 
-Weights are the port's seeded init (torch.Generator seeded 0); the BatchNorm
-running statistics are then calibrated on the batch-32 request (one
+Weights are the port's seeded init (torch.Generator seeded 0); for inference
+the BatchNorm running statistics are calibrated on the batch-32 request (one
 train-mode forward), since identity statistics on N(0, 100) DCT planes drive
 the activations, and the box offsets, to overflow.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import json
 import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -48,6 +74,21 @@ H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, same source
 H100_BF16_FLOPS = 989e12  # bf16 dense on the tensor cores, same source
 NMS_OPS_PER_PAIR = 16  # 2x(min, max, sub, add d, max 0), mul, add, sub, max, div, cmp
+KERNELS = ("batched_nms", "bipartite_match", "conv3x3_wgrad")
+# The GT of every image in the JAX package's train benchmark (`bench.py:136-140`):
+# (class, xmin, ymin, xmax, ymax) in pixels of the 300x300 image.  The train
+# batches that `fit` and the step timings run carry the same two boxes.
+BENCH_GT = ((3, 30, 40, 160, 170), (7, 150, 60, 280, 240))
+WGRAD_TOL = 1e-4  # max |kernel - plain| <= WGRAD_TOL * max |plain|: both sum in f32, in another order
+
+# The 24 filter gradients of one `ssd_custom` train step: (H, C, K, count).
+# 18 bottleneck 3x3 convs, then the 6 fused conf+loc head convs.
+WGRAD_SHAPES = (
+    (38, 256, 256, 1), (38, 128, 128, 4), (19, 256, 256, 1), (19, 128, 128, 3),
+    (10, 256, 256, 6), (5, 512, 512, 3),
+    (38, 384, 100, 1), (19, 512, 150, 1), (10, 1024, 150, 1), (5, 1024, 150, 1),
+    (3, 256, 100, 1), (1, 256, 100, 1),
+)
 
 
 def card_line() -> str:
@@ -76,6 +117,42 @@ def nms_problems(rng, n, k):
     return np.ascontiguousarray(boxes), np.ascontiguousarray(scores)
 
 
+def gt_batch(rng, n_valid, max_gt=64, img=300):
+    """Padded GT (B, max_gt, 5) float32 (class, xmin, ymin, xmax, ymax) in
+    pixels and a (B, max_gt) mask, n_valid[i] boxes in image i; the second
+    box of an image repeats the first (exact ties in matching)."""
+    gt = np.zeros((len(n_valid), max_gt, 5), np.float32)
+    mask = np.zeros((len(n_valid), max_gt), bool)
+    for i, k in enumerate(n_valid):
+        xy0 = rng.uniform(0, img - 60, (k, 2))
+        xy1 = np.minimum(xy0 + rng.uniform(8, 220, (k, 2)), img)
+        rows = np.concatenate([rng.integers(1, 21, (k, 1)), xy0, xy1], -1)
+        if k >= 2:
+            rows[1] = rows[0]
+        gt[i, :k] = rows
+        mask[i, :k] = True
+    return gt, mask
+
+
+def bench_gt(b, max_gt=64):
+    """Padded GT (B, max_gt, 5) and mask with `BENCH_GT` in every image."""
+    gt = np.zeros((b, max_gt, 5), np.float32)
+    gt[:, :len(BENCH_GT)] = BENCH_GT
+    mask = np.zeros((b, max_gt), bool)
+    mask[:, :len(BENCH_GT)] = True
+    return gt, mask
+
+
+def train_batch(rng, gt, mask, dev):
+    """A synthetic train batch on `dev`: DCT planes as `bench.py` makes them
+    (Y ~ N(0, 100), CbCr ~ N(0, 30)) and the padded GT `gt`, `mask`."""
+    b = len(gt)
+    y = rng.normal(0, 100, (b, 38, 38, 64)).astype(np.float32)
+    cbcr = rng.normal(0, 30, (b, 19, 19, 128)).astype(np.float32)
+    return {"inputs": (torch.from_numpy(y).to(dev), torch.from_numpy(cbcr).to(dev)),
+            "gt": torch.from_numpy(gt).to(dev), "gt_mask": torch.from_numpy(mask).to(dev)}
+
+
 def nms_bound(keep: torch.Tensor) -> tuple[float, str, int]:
     """Least time for the greedy NMS these inputs need: each kept candidate i
     (the alive ones at step i) is tested against the K-1-i later ones."""
@@ -85,6 +162,24 @@ def nms_bound(keep: torch.Tensor) -> tuple[float, str, int]:
     nbytes = n * k * (4 * 4 + 4 + 1)  # boxes, scores in; keep out
     t_bytes, t_ops = nbytes / H100_BYTES_PER_S, ops / H100_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), pairs
+
+
+def match_bound(sims: torch.Tensor) -> tuple[float, str]:
+    """Read the similarities once, write the indices; one compare each."""
+    b, m, n = sims.shape
+    t_bytes = (b * m * n * 4 + b * m * 4) / H100_BYTES_PER_S
+    t_ops = b * m * n / H100_F32_FLOPS
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def wgrad_bound(p: int, c: int, k: int, dtype: torch.dtype) -> tuple[float, str]:
+    """2*9*P*C*K operations at the dtype's peak; x and dy read once, dW
+    (float32) written once."""
+    peak = H100_BF16_FLOPS if dtype == torch.bfloat16 else H100_F32_FLOPS
+    elem = torch.tensor([], dtype=dtype).element_size()
+    t_ops = 2 * 9 * p * c * k / peak
+    t_bytes = ((p * c + p * k) * elem + 9 * c * k * 4) / H100_BYTES_PER_S
+    return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
 def calibrate_batch_norm(model, inputs) -> None:
@@ -109,35 +204,32 @@ def check(cond: bool, what: str) -> None:
     print(f"  ok: {what}")
 
 
-def main() -> int:
-    if not torch.cuda.is_available():
-        print("chip_smoke: no CUDA device available", file=sys.stderr)
-        return 1
-    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-    from jpeg_detection_resnet_ssd_torch.boxes.anchors import AnchorSpec, build_anchors
-    from jpeg_detection_resnet_ssd_torch.boxes.decode import decode_detections, select_candidates
-    from jpeg_detection_resnet_ssd_torch.models import build_model, make_inference_fn
-    from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
-    from jpeg_detection_resnet_ssd_torch.ops import _build, batched_nms
+def timed(fn, iters, warmup_s=0.5):
     from jpeg_detection_resnet_ssd_torch.utils import cuda_times_ms
 
-    t_start = time.perf_counter()
-    dev = torch.device("cuda")
-    card = card_line()
-    print(f"[1] card: {card}")
-    print(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
-          f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+    times = cuda_times_ms(fn, iters=iters, windows=5, warmup_s=warmup_s)
+    return float(np.median(times)), f"[{min(times):.4f}-{max(times):.4f}]"
 
-    print("[2] build")
+
+def build_kernels() -> None:
+    """One nvcc per source, all started together."""
+    from jpeg_detection_resnet_ssd_torch.ops import _build
+
     t0 = time.perf_counter()
-    log = _build.build("batched_nms", force=True)
-    _build.load("batched_nms")
-    print(f"    nvcc build of ops/csrc/batched_nms.cu: {time.perf_counter() - t0:.2f} s")
-    for line in log.splitlines():
-        if "registers" in line or "smem" in line or "spill" in line:
-            print(f"    ptxas: {line.strip()}")
+    with concurrent.futures.ThreadPoolExecutor(len(KERNELS)) as pool:
+        logs = dict(zip(KERNELS, pool.map(lambda k: _build.build(k, force=True), KERNELS)))
+    for name in KERNELS:
+        _build.load(name)
+    print(f"    nvcc builds of ops/csrc/{{{','.join(KERNELS)}}}.cu: {time.perf_counter() - t0:.2f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "smem" in line or "spill" in line:
+                print(f"    ptxas [{name}]: {line.strip()}")
 
-    print("[3] NMS kernel against its plain version")
+
+def check_nms(dev) -> float:
+    from jpeg_detection_resnet_ssd_torch.ops import batched_nms
+
     max_err = 0.0
     for n, k in ((640, 400), (7, 37)):
         boxes, scores = nms_problems(np.random.default_rng(n), n, k)
@@ -152,11 +244,83 @@ def main() -> int:
             if delta == 0.0:
                 check(bool(got[:, 1].all()) and not bool(got[:, 3].any()),
                       "IoU == f32(0.45) keeps, one ulp above suppresses")
+    return max_err
 
-    print("[4] main path")
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-    print("    TF32 off for cuDNN convolutions and matmuls (f32 checks run in full f32)")
+
+def iou_sims(gt, mask, anchors):
+    """(B, 64, 8732) IoUs of padded GT with the anchors, invalid rows -1:
+    the target encoder's similarities."""
+    from jpeg_detection_resnet_ssd_torch.boxes import geometry
+
+    cent = geometry.corners_to_centroids(gt[..., 1:5] / 300.0)
+    sims = geometry.iou_matrix(cent, anchors[:, :4], "centroids")
+    return torch.where(mask[..., None], sims, -1.0).contiguous()
+
+
+def check_match(dev, anchors) -> tuple[float, torch.Tensor]:
+    from jpeg_detection_resnet_ssd_torch.ops import bipartite_match as bm
+
+    rng = np.random.default_rng(4)
+    n_valid = [int(v) for v in rng.integers(1, 11, 32)]
+    n_valid[5], n_valid[17] = 64, 0
+    gt, mask = gt_batch(rng, n_valid)
+    sims = iou_sims(torch.from_numpy(gt).to(dev), torch.from_numpy(mask).to(dev), anchors)
+    ties = (rng.integers(-4, 16, (5, 64, 300)).astype(np.float32) / 16)
+    ties[:, -3:] = -1.0
+    max_err = 0
+    for name, s in (("IoU sims (32, 64, 8732)", sims),
+                    ("tie-heavy sims (5, 64, 300)", torch.from_numpy(ties).to(dev))):
+        got = bm.bipartite_match(s, impl="kernel")
+        torch.cuda.synchronize()
+        ref = bm.bipartite_match_reference(s)
+        max_err = max(max_err, int((got - ref).abs().max()))
+        check(torch.equal(got, ref), f"{name}: matched indices equal ({int((ref >= 0).sum())} pairs)")
+    got = bm.bipartite_match(sims, impl="kernel")
+    check(bool(((got >= 0) == (sims.amax(-1) >= 0)).all()) and bool((got[17] < 0).all())
+          and bool((got[5] >= 0).all()), "every valid row matched, none of the padding")
+    return float(max_err), sims
+
+
+def check_wgrad(dev) -> float:
+    from jpeg_detection_resnet_ssd_torch.ops import conv_grad
+
+    gen = torch.Generator().manual_seed(5)
+    worst = 0.0
+    for h, c, k, count in WGRAD_SHAPES:
+        x32 = torch.randn(32, h, h, c, generator=gen).to(dev)
+        dy32 = torch.randn(32, h, h, k, generator=gen).to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dy = x32.to(dtype), dy32.to(dtype)
+            got = conv_grad.conv3x3_filter_grad(x, dy)
+            torch.cuda.synchronize()
+            ref = conv_grad.conv3x3_filter_grad_reference(x, dy)
+            err = float((got - ref).abs().max())
+            scale = float(ref.abs().max())
+            worst = max(worst, err)
+            check(err <= WGRAD_TOL * scale,
+                  f"dW {str(dtype)[6:]:8s} B=32 {h}x{h} {c}->{k} (x{count}): max |diff| {err:.3g} "
+                  f"<= {WGRAD_TOL:g} * {scale:.4g}")
+    x = torch.randn(3, 7, 9, 40, generator=gen, dtype=torch.float64)
+    dy = torch.randn(3, 7, 9, 24, generator=gen, dtype=torch.float64)
+    xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
+    oracle = torch.stack([xp[:, i:i + 7, j:j + 9, :].reshape(-1, 40).T @ dy.reshape(-1, 24)
+                          for i in range(3) for j in range(3)]).reshape(3, 3, 40, 24)
+    got = conv_grad.conv3x3_filter_grad(x.float().to(dev), dy.float().to(dev)).cpu().double()
+    err = float((got - oracle).abs().max())
+    check(err <= 1e-5 * float(oracle.abs().max()),
+          f"dW f32 kernel vs float64 oracle at (3, 7, 9, 40->24): max |diff| {err:.3g}")
+    return worst
+
+
+def run_inference(dev, card):
+    """Phase 6 (checks) and the inference half of phase 9 (timings)."""
+    from jpeg_detection_resnet_ssd_torch.boxes.anchors import AnchorSpec, build_anchors
+    from jpeg_detection_resnet_ssd_torch.boxes.decode import decode_detections, select_candidates
+    from jpeg_detection_resnet_ssd_torch.models import build_model, make_inference_fn
+    from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
+    from jpeg_detection_resnet_ssd_torch.ops import batched_nms
+
+    print("[6] inference path (TF32 off for cuDNN convolutions and matmuls)")
     rng = np.random.default_rng(0)
     y32 = torch.from_numpy(rng.normal(0, 100, (32, 38, 38, 64)).astype(np.float32)).to(dev)
     c32 = torch.from_numpy(rng.normal(0, 30, (32, 19, 19, 128)).astype(np.float32)).to(dev)
@@ -183,7 +347,7 @@ def main() -> int:
         det_f32 = {sel: fn(raw_f32) for sel, fn in decode.items()}
     torch.cuda.synchronize()
     launches = batched_nms.LAUNCHES
-    print(f"    NMS kernel launches on the main path: {launches}")
+    print(f"    NMS kernel launches on the inference path: {launches}")
     check(launches == 4, "every request and selector ran the NMS kernel")
 
     anchors = torch.from_numpy(build_anchors(spec, ssd_predictor_sizes("resnet_custom"))).to(dev)
@@ -232,12 +396,7 @@ def main() -> int:
           f"{float((raw_bf16[..., :21] - raw_f32_b32[..., :21]).abs().max()):.4g}, "
           f"loc max |diff| {float((raw_bf16[..., 21:25] - raw_f32_b32[..., 21:25]).abs().max()):.4g}")
 
-    print(f"[5] timings (CUDA events; median of 5 windows [min-max]) on {card}")
-
-    def timed(fn, iters):
-        times = cuda_times_ms(fn, iters=iters, windows=5)
-        return float(np.median(times)), f"[{min(times):.4f}-{max(times):.4f}]"
-
+    print(f"[9a] inference timings (CUDA events; median of 5 windows [min-max]) on {card}")
     with torch.no_grad():
         e2e_ms, e2e_spread = timed(lambda: decode["shared"](model_bf16((y32, c32))), 10)
         fwd_ms, fwd_spread = timed(lambda: model_bf16((y32, c32)), 10)
@@ -272,26 +431,300 @@ def main() -> int:
     plain_ms, plain_spread = timed(lambda: batched_nms.batched_nms_mask_reference(nb, ns), 1)
     bound_ms, bound_by, pairs = nms_bound(keep)
     alive = int((ns > 0).sum())
-    print(f"    NMS at the main path's shape N={nb.shape[0]} K={nb.shape[1]}: {alive} candidates "
+    print(f"    NMS at the inference path's shape N={nb.shape[0]} K={nb.shape[1]}: {alive} candidates "
           f"with score > 0, {int(keep.sum())} kept, {pairs} pair tests needed")
     print(f"    NMS kernel: {kernel_ms:.5f} ms {kernel_spread}; plain PyTorch version: "
           f"{plain_ms:.4f} ms {plain_spread}; bound {bound_ms:.6f} ms ({bound_by}); library: "
           f"none (no single PyTorch call computes a greedy-NMS keep mask)  [{card}]")
+    return {"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by}
 
-    print(f"[6] done in {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"kernels": [{
-        "name": "batched_nms_mask",
-        "route": "cuda",
-        "source": "jpeg_detection_resnet_ssd_torch/ops/csrc/batched_nms.cu",
-        "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_nms.py:114",
-        "launches": launches,
-        "max_abs_err": float(max_err),
-        "ms": kernel_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": bound_by,
-        "library_ms": None,
-    }]}))
+
+def profile_steps(step, card, step_ms, n=3):
+    """Where a train step's time goes: torch.profiler over n steps (after
+    one untraced); the kernels' summed device time per step against the
+    step's time without the profiler (`step_ms`, CUDA events), and the
+    largest kernels by device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    step()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            step()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3 / n
+    if busy_ms == 0:
+        print("    profiler: no device time recorded; device busy share not measured")
+        return
+    print(f"    profiler, {n} train steps with both kernels: kernels busy {busy_ms:.3f} ms per step, "
+          f"{sum(e.count for e in kernels) // n} kernel launches per step; against the "
+          f"{step_ms:.3f} ms step the device is idle {100 * max(0.0, 1 - busy_ms / step_ms):.1f}% "
+          f" [{card}]")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:10]:
+        print(f"      {e.self_device_time_total / 1e3 / n:9.3f} ms  x{e.count // n:<5d} {e.key[:90]}")
+
+
+def encoder_sims(encoder, batch):
+    """The similarities `encoder` hands the matching kernel for `batch`."""
+    from jpeg_detection_resnet_ssd_torch.boxes import target_encoder
+
+    match, seen = target_encoder.bipartite_match, []
+
+    def record(sims, impl):
+        seen.append(sims.clone())
+        return match(sims, impl=impl)
+
+    target_encoder.bipartite_match = record
+    try:
+        encoder(batch["gt"], batch["gt_mask"])
+    finally:
+        target_encoder.bipartite_match = match
+    return seen[0]
+
+
+def run_training(dev, card, stress_sims):
+    """Phases 7 and 8 (checks) and the training half of phase 9 (timings)."""
+    from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
+    from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
+    from jpeg_detection_resnet_ssd_torch.ops import bipartite_match as bm
+    from jpeg_detection_resnet_ssd_torch.ops import conv_grad
+    from jpeg_detection_resnet_ssd_torch.train import (
+        CheckpointManager, ExperimentConfig, build_trainer, fit,
+    )
+
+    sizes = ssd_predictor_sizes("resnet_custom")
+    print("[7] training path: fit, 5 steps at batch 32 in bf16, both kernels on")
+    rng = np.random.default_rng(7)
+    batches = [train_batch(rng, *bench_gt(32), dev) for _ in range(5)]
+    cfg = ExperimentConfig(model="ssd300_ssd_custom", pallas_wgrad=True, compute_dtype="bfloat16",
+                           batch_size=32, epochs=5, steps_per_epoch=1)
+    encoder = TargetEncoder(AnchorSpec(), sizes, bipartite_impl="auto")
+    with tempfile.TemporaryDirectory() as run_dir:
+        t0 = time.perf_counter()
+        bm.LAUNCHES = conv_grad.LAUNCHES = conv_grad.LAYOUT_COPIES = 0
+        trainer, history = fit(cfg, batches, run_dir=run_dir, target_encoder=encoder,
+                               log_every=1, save_every=5)
+        torch.cuda.synchronize()
+        launches = {"match": bm.LAUNCHES, "wgrad": conv_grad.LAUNCHES}
+        copies = conv_grad.LAYOUT_COPIES
+        print(f"    fit: {time.perf_counter() - t0:.2f} s (first step builds nothing: kernels "
+              f"were built in phase 2); losses "
+              + ", ".join(f"{r['total_loss']:.4f}" for r in history))
+        print(f"    kernel launches on the training path: matching {launches['match']}, "
+              f"filter gradient {launches['wgrad']}; layout copies before the filter-gradient "
+              f"kernel: {copies}")
+        check(len(history) == 5 and all(np.isfinite(r["total_loss"]) for r in history),
+              "5 steps, every loss finite")
+        check(launches["match"] == 5, "the matching kernel ran once per step")
+        check(launches["wgrad"] == 24 * 5, "the filter-gradient kernel ran 24 times per step")
+        ckpt = CheckpointManager(os.path.join(run_dir, "checkpoints"))
+        check(ckpt.all_steps() == [5], "a checkpoint was written at step 5")
+        fresh, _, _ = build_trainer(cfg)
+        ckpt.restore(fresh)
+        same = all(torch.equal(a, b) for a, b in zip(fresh.model.state_dict().values(),
+                                                      trainer.model.state_dict().values()))
+        check(fresh.step == 5 and same, "the checkpoint restores to step 5 with the same weights")
+        del fresh
+
+    print("[8] one float32 step at batch 2: card (kernels, TF32 off) vs the port's CPU path")
+    cfg32 = ExperimentConfig(compute_dtype="float32", pallas_wgrad=True, batch_size=2)
+    rng = np.random.default_rng(8)
+    small = train_batch(rng, *gt_batch(rng, [3, 7]), dev)
+    small_cpu = {"inputs": tuple(t.cpu() for t in small["inputs"]),
+                 "gt": small["gt"].cpu(), "gt_mask": small["gt_mask"].cpu()}
+    enc_gpu = TargetEncoder(AnchorSpec(), sizes)
+    enc_cpu = TargetEncoder(AnchorSpec(), sizes, device="cpu")
+    t_gpu = enc_gpu(small["gt"], small["gt_mask"]).cpu()
+    t_cpu = enc_cpu(small_cpu["gt"], small_cpu["gt_mask"])
+    check(torch.equal(t_gpu[..., :21], t_cpu[..., :21]) and torch.equal(t_gpu[..., 25:], t_cpu[..., 25:]),
+          "targets: one-hot, anchor and variance columns identical")
+    off_err = float((t_gpu[..., 21:25] - t_cpu[..., 21:25]).abs().max())
+    check(off_err <= 1e-5, f"targets: offsets max |diff| {off_err:.3g} <= 1e-5")
+    gpu, gpu_model, _ = build_trainer(cfg32, target_encoder=enc_gpu)
+    cpu, cpu_model, _ = build_trainer(cfg32, target_encoder=enc_cpu, device="cpu")
+    cpu_model.load_state_dict(gpu_model.state_dict())
+    # Every filter gradient the card's step takes from the kernel, with the
+    # activations and output gradients it was given.
+    kernel, recorded = conv_grad.conv3x3_filter_grad, []
+
+    def record(x, dy):
+        dw = kernel(x, dy)
+        recorded.append((x.clone(), dy.clone(), dw.clone()))
+        return dw
+
+    conv_grad.conv3x3_filter_grad = record
+    try:
+        m_gpu = gpu.train_step(small)
+    finally:
+        conv_grad.conv3x3_filter_grad = kernel
+    m_cpu = cpu.train_step(small_cpu)
+    check(len(recorded) == 24, f"the card's step took {len(recorded)} filter gradients from the kernel")
+    step_err, worst_share, n_zero = 0.0, 0.0, 0
+    for x, dy, got in recorded:
+        ref = conv_grad.conv3x3_filter_grad_reference(x, dy)
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        step_err = max(step_err, err)
+        n_zero += scale == 0.0  # an all-zero input (a map that ReLU zeroed) or output gradient
+        worst_share = max(worst_share, err / scale if scale else (0.0 if err == 0.0 else np.inf))
+    check(worst_share <= WGRAD_TOL,
+          f"kernel dW on the step's own activations and output gradients vs its plain version: "
+          f"worst max |diff| {worst_share:.3g} <= {WGRAD_TOL:g} of max |ref| over the 24 convs "
+          f"({n_zero} with dW exactly 0, matched exactly)")
+    del recorded
+    for key in ("loss", "reg", "total_loss"):
+        a, b = float(m_gpu[key]), float(m_cpu[key])
+        check(abs(a - b) <= 1e-4 * abs(b), f"{key}: card {a:.6f} vs CPU {b:.6f} (rtol 1e-4)")
+    # The kernel's dW is held to its plain version on the step's own tensors
+    # (above).  Against the CPU's step, the head's filter gradients are well
+    # conditioned; the trunk's are not at this random init (a change of one
+    # part in 1e7 of the input moves the port's own stage-4/5 gradients by
+    # up to 30% of their largest entry, CPU measurement), so an updated
+    # parameter is held to the step's own size: |card - CPU| <= 1e-6 max|p|
+    # + lr * max|grad| (the first step moves p by lr * grad).  A bias whose
+    # gradient is 0 in exact arithmetic (its conv feeds a train-mode
+    # BatchNorm) is scaled by its layer's weight gradient.
+    g_cpu = {k: p.grad for k, p in cpu_model.named_parameters()}
+    worst_head = 0.0
+    for k, p in gpu_model.named_parameters():
+        if "_mbox_" in k and k.endswith("weight"):
+            ref = g_cpu[k]
+            worst_head = max(worst_head, float((p.grad.cpu() - ref).abs().max() / ref.abs().max()))
+    check(worst_head <= 1e-3, f"head filter gradients within {worst_head:.3g} <= 1e-3 of max |ref|")
+    ratios = {}
+    for k, p in cpu_model.named_parameters():
+        p = p.detach()
+        zero_grad = k.endswith(".bias") and (k.startswith("res") or k.startswith("bn_"))
+        scale = float(g_cpu[k[: -len("bias")] + "weight" if zero_grad else k].abs().max())
+        diff = float((gpu_model.get_parameter(k).detach().cpu() - p).abs().max())
+        ratios[k] = diff / (1e-6 * float(p.abs().max()) + cfg32.learning_rate * scale + 1e-30)
+    worst = max(ratios, key=ratios.get)
+    check(ratios[worst] <= 1.0, f"updated parameters: worst {worst} at {ratios[worst]:.3g} of its "
+                                f"tolerance; median {float(np.median(list(ratios.values()))):.3g}")
+    del gpu, cpu, gpu_model, cpu_model
+
+    print(f"[9b] training timings (CUDA events; median of 5 windows [min-max]) on {card}")
+    batch = batches[0]
+    cfg_off = ExperimentConfig(compute_dtype="bfloat16", pallas_wgrad=False, batch_size=32)
+    enc_off = TargetEncoder(AnchorSpec(), sizes, bipartite_impl="reference")
+    off, _, _ = build_trainer(cfg_off, target_encoder=enc_off)
+    step_ms = {"on": [], "off": []}
+    for arm in ("on", "off", "off", "on"):
+        fn = (lambda: trainer.train_step(batch)) if arm == "on" else (lambda: off.train_step(batch))
+        step_ms[arm].append(timed(fn, 2, warmup_s=1.0))
+    for arm, label in (("on", "both kernels"), ("off", "both off: cuDNN dW, plain matching")):
+        ms = [m for m, _ in step_ms[arm]]
+        print(f"    train step, batch 32 bf16, {label}: " + ", ".join(
+            f"{m:.3f} ms {spread}" for m, spread in step_ms[arm])
+            + f" -> {32e3 / np.mean(ms):.1f} images/s  [{card}]")
+    host_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    print(f"    train step (kernels) host time to return: {float(np.median(host_ms)):.3f} ms "
+          f"[{min(host_ms):.3f}-{max(host_ms):.3f}] (median of 5, host clock)")
+    del off
+    profile_steps(lambda: trainer.train_step(batch), card,
+                  float(np.median([m for m, _ in step_ms["on"]])))
+
+    sims = encoder_sims(encoder, batch)
+    m_ms, m_spread = timed(lambda: bm.bipartite_match(sims, impl="kernel"), 20, warmup_s=0.2)
+    mp_ms, mp_spread = timed(lambda: bm.bipartite_match_reference(sims), 2, warmup_s=0.2)
+    mb_ms, mb_by = match_bound(sims)
+    print(f"    matching at (32, 64, 8732) on the train batch's IoUs ({len(BENCH_GT)} GT per image): "
+          f"kernel {m_ms:.5f} ms {m_spread}; plain {mp_ms:.4f} ms {mp_spread}; bound {mb_ms:.6f} ms "
+          f"({mb_by}); library: none  [{card}]")
+    s_ms, s_spread = timed(lambda: bm.bipartite_match(stress_sims, impl="kernel"), 20, warmup_s=0.2)
+    sp_ms, sp_spread = timed(lambda: bm.bipartite_match_reference(stress_sims), 2, warmup_s=0.2)
+    print(f"    matching, worst case: phase 4's IoUs (1-10 GT per image, one image of 64, duplicate "
+          f"boxes): kernel {s_ms:.5f} ms {s_spread}; plain {sp_ms:.4f} ms {sp_spread}  [{card}]")
+
+    sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    bound_by = {"operations": 0, "bytes": 0}
+    gen = torch.Generator().manual_seed(9)
+    for h, c, k, count in WGRAD_SHAPES:
+        x = torch.randn(32, h, h, c, generator=gen).to(dev, torch.bfloat16)
+        dy = torch.randn(32, h, h, k, generator=gen).to(dev, torch.bfloat16)
+        w = torch.zeros(k, c, 3, 3, device=dev, dtype=torch.bfloat16)
+        xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        kern, kern_s = timed(lambda: conv_grad.conv3x3_filter_grad(x, dy), 10, warmup_s=0.1)
+        plain, _ = timed(lambda: conv_grad.conv3x3_filter_grad_reference(x, dy), 3, warmup_s=0.1)
+        lib, lib_s = timed(lambda: torch.ops.aten.convolution_backward(
+            dyn, xn, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, False]), 10,
+            warmup_s=0.1)
+        bound, by = wgrad_bound(32 * h * h, c, k, torch.bfloat16)
+        for key, v in (("ms", kern), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bound)):
+            sums[key] += count * v
+        bound_by[by] += count
+        print(f"    dW bf16 B=32 {h:2d}x{h:<2d} {c:4d}->{k:<4d} x{count}: kernel {kern:.4f} ms {kern_s}; "
+              f"plain {plain:.4f}; cuDNN {lib:.4f} {lib_s}; bound {bound:.5f} ({by}); "
+              f"kernel/cuDNN {kern / lib:.2f}")
+    print(f"    dW per train step (24 convs): kernel {sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, "
+          f"cuDNN {sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms "
+          f"({bound_by['operations']} convs bound by operations, {bound_by['bytes']} by bytes)  [{card}]")
+    return {
+        "match": {"launches": launches["match"], "ms": m_ms, "plain_ms": mp_ms,
+                  "bound_ms": mb_ms, "bound_by": mb_by},
+        "wgrad": {"launches": launches["wgrad"], **sums,
+                  "bound_by": max(bound_by, key=bound_by.get)},
+        "wgrad_step_err": step_err,
+    }
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from jpeg_detection_resnet_ssd_torch.boxes.anchors import AnchorSpec, build_anchors
+    from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
+
+    t_start = time.perf_counter()
+    dev = torch.device("cuda")
+    card = card_line()
+    print(f"[1] card: {card}")
+    print(f"    torch {torch.__version__}, CUDA {torch.version.cuda}, "
+          f"{torch.cuda.get_device_name(0)}, {torch.cuda.device_count()} device(s)")
+
+    print("[2] build")
+    build_kernels()
+
+    print("[3] NMS kernel against its plain version")
+    nms_err = check_nms(dev)
+
+    # TF32 would round float32 matmul and convolution inputs to 10 bits:
+    # every float32 check (plain versions, card vs CPU) runs in full float32.
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+
+    print("[4] matching kernel against its plain version")
+    anchors = torch.from_numpy(build_anchors(
+        AnchorSpec(), ssd_predictor_sizes("resnet_custom"), coords="centroids")).to(dev)
+    match_err, stress_sims = check_match(dev, anchors)
+
+    print(f"[5] filter-gradient kernel against its plain version (tolerance {WGRAD_TOL:g} max |ref|)")
+    wgrad_err = check_wgrad(dev)
+
+    nms = run_inference(dev, card)
+    train = run_training(dev, card, stress_sims)
+
+    print(f"[10] done in {time.perf_counter() - t_start:.1f} s")
+    source = "jpeg_detection_resnet_ssd_torch/ops/csrc/{}.cu"
+    print(json.dumps({"kernels": [
+        {"name": "batched_nms_mask", "route": "cuda", "source": source.format("batched_nms"),
+         "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_nms.py:114",
+         "max_abs_err": nms_err, "library_ms": None, **nms},
+        {"name": "bipartite_match", "route": "cuda", "source": source.format("bipartite_match"),
+         "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_match.py:174",
+         "max_abs_err": match_err, "library_ms": None, **train["match"]},
+        {"name": "conv3x3_filter_grad", "route": "cuda", "source": source.format("conv3x3_wgrad"),
+         "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_conv_grad.py:128",
+         "max_abs_err": max(wgrad_err, train["wgrad_step_err"]), **train["wgrad"]},
+    ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

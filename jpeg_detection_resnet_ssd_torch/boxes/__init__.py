@@ -1,4 +1,5 @@
-"""Box geometry, anchors and prediction decoding (torch)."""
+"""Box geometry, anchors, prediction decoding, matching and target
+encoding (torch)."""
 
 from jpeg_detection_resnet_ssd_torch.boxes.anchors import (
     SSD300_ASPECT_RATIOS,
@@ -21,6 +22,10 @@ from jpeg_detection_resnet_ssd_torch.boxes.geometry import (
     convert,
     corners_to_centroids,
     corners_to_minmax,
+    intersection_area_matrix,
     iou_elementwise,
+    iou_matrix,
     minmax_to_corners,
 )
+from jpeg_detection_resnet_ssd_torch.boxes.matching import match_bipartite_greedy, match_multi
+from jpeg_detection_resnet_ssd_torch.boxes.target_encoder import TargetEncoder, encode_targets

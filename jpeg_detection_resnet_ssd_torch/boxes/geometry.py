@@ -121,6 +121,27 @@ def intersection_area_elementwise(boxes1, boxes2, coords="corners", border_pixel
     return side[..., 0] * side[..., 1]
 
 
+def intersection_area_matrix(boxes1, boxes2, coords="corners", border_pixels="half"):
+    """Pairwise intersection areas: (..., m, 4) x (..., n, 4) -> (..., m, n)."""
+    b1 = _as_corners(boxes1, coords)[..., :, None, :]
+    b2 = _as_corners(boxes2, coords)[..., None, :, :]
+    d = border_delta(border_pixels)
+    min_xy = torch.maximum(b1[..., :2], b2[..., :2])
+    max_xy = torch.minimum(b1[..., 2:], b2[..., 2:])
+    side = torch.clamp_min(max_xy - min_xy + d, 0.0)
+    return side[..., 0] * side[..., 1]
+
+
+def iou_matrix(boxes1, boxes2, coords="corners", border_pixels="half"):
+    """Pairwise Jaccard overlap: (..., m, 4) x (..., n, 4) -> (..., m, n),
+    leading axes broadcast; 0 where the union is not > 0."""
+    inter = intersection_area_matrix(boxes1, boxes2, coords, border_pixels)
+    a1 = box_area(_as_corners(boxes1, coords), border_pixels)[..., :, None]
+    a2 = box_area(_as_corners(boxes2, coords), border_pixels)[..., None, :]
+    union = a1 + a2 - inter
+    return torch.where(union > 0, inter / union, torch.zeros_like(inter))
+
+
 def iou_elementwise(boxes1, boxes2, coords="corners", border_pixels="half"):
     """Broadcast element-wise Jaccard overlap; 0 where the union is not > 0."""
     inter = intersection_area_elementwise(boxes1, boxes2, coords, border_pixels)

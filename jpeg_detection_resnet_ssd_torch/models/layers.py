@@ -15,15 +15,26 @@ transpose, and the result is viewed back as NHWC.
 `dtype` has the flax meaning: parameters stay float32 and a layer computes
 in its input's dtype (weights are cast on the fly); the model casts its
 inputs to its compute dtype once, at the entry.
+
+`pallas_wgrad()` is the JAX package's process-wide switch of the same name,
+here a context manager: while it is on, `conv3x3_same` (every `Conv` that is
+3x3, stride 1, SAME and dilation 1, and the SSD head's fused conf+loc conv)
+runs through `ops.conv_grad.conv3x3_same_wgrad`, whose filter gradient is
+the CUDA kernel `ops/csrc/conv3x3_wgrad.cu`.  The forward, the input
+gradient and the parameter names are unchanged.  Unlike the JAX switch (read
+at trace time), this one is read at every forward call.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from jpeg_detection_resnet_ssd_torch.ops.conv_grad import conv3x3_same_wgrad
 
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.01  # Keras momentum 0.99
@@ -31,6 +42,36 @@ BN_MOMENTUM = 0.01  # Keras momentum 0.99
 # flax's variance_scaling(..., "truncated_normal") divides by the stddev of a
 # unit normal truncated at +-2 so that the truncated draw has the target std.
 _TRUNC_STD = 0.87962566103423978
+
+
+_WGRAD_KERNEL_ENABLED = False
+
+
+def pallas_wgrad_enabled() -> bool:
+    return _WGRAD_KERNEL_ENABLED
+
+
+@contextlib.contextmanager
+def pallas_wgrad(enabled: bool = True):
+    """Route eligible 3x3 convs' filter gradient through the CUDA kernel
+    (or, with `enabled=False`, through the library) inside the block."""
+    global _WGRAD_KERNEL_ENABLED
+    prev, _WGRAD_KERNEL_ENABLED = _WGRAD_KERNEL_ENABLED, bool(enabled)
+    try:
+        yield
+    finally:
+        _WGRAD_KERNEL_ENABLED = prev
+
+
+def conv3x3_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
+    """3x3 stride-1 SAME conv of NHWC `x` with an OIHW `weight` and `bias`,
+    both already in x's dtype.  With the switch on, the filter gradient comes
+    from the CUDA kernel and the bias stays outside the Function, as in the
+    JAX package."""
+    if _WGRAD_KERNEL_ENABLED:
+        y = conv3x3_same_wgrad(x, weight)
+        return y if bias is None else y + bias
+    return nchw_to_nhwc(F.conv2d(nhwc_to_nchw(x), weight, bias, 1, 1))
 
 
 def he_normal_(weight: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
@@ -78,6 +119,7 @@ class Conv(nn.Module):
             raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
         self.stride = strides
         self.dilation = dilation
+        self.wgrad_eligible = (kernel, strides, padding, dilation) == (3, 1, "SAME", 1)
         self.weight = nn.Parameter(
             he_normal_(torch.empty(features, in_features, kernel, kernel), generator)
         )
@@ -87,11 +129,13 @@ class Conv(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        bias = None if self.bias is None else self.bias.to(x.dtype)
+        if self.wgrad_eligible:
+            return conv3x3_same(x, self.weight.to(x.dtype), bias)
         lo, hi = self.pad
         if lo != hi:  # TF SAME puts the odd row/column on the high side
             x = F.pad(x, (0, 0, lo, hi, lo, hi))
             lo = 0
-        bias = None if self.bias is None else self.bias.to(x.dtype)
         y = F.conv2d(
             nhwc_to_nchw(x), self.weight.to(x.dtype), bias,
             self.stride, lo, self.dilation,
@@ -102,14 +146,32 @@ class Conv(nn.Module):
 class BatchNorm(nn.BatchNorm2d):
     """Keras-default BatchNormalization on NHWC (eps 1e-3, momentum 0.99).
 
-    In eval mode it normalises with the running statistics, computing in
-    float32 and returning the input's dtype, as the flax layer does."""
+    Train mode is flax's `BatchNorm(use_running_average=False)`: statistics
+    in at least float32 over (B, H, W), the variance as E[x^2] - E[x]^2
+    clipped at 0 (biased), `y = (x - mean) * (rsqrt(var + eps) * scale) +
+    bias`, and the running statistics move by `running = 0.99 * running +
+    0.01 * batch` with that same biased variance (torch's own layer would
+    use the unbiased one).  `momentum=None` keeps torch's cumulative average (factor
+    1 / num_batches_tracked).  Eval mode normalises with the running
+    statistics.  Both return the input's dtype."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPSILON, momentum=BN_MOMENTUM)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return nchw_to_nhwc(super().forward(nhwc_to_nchw(x)))
+        if not self.training:
+            return nchw_to_nhwc(super().forward(nhwc_to_nchw(x)))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))
+        mean = xf.mean(dim=(0, 1, 2))
+        var = torch.clamp_min(xf.square().mean(dim=(0, 1, 2)) - mean.square(), 0.0)
+        with torch.no_grad():
+            self.num_batches_tracked.add_(1)
+            factor = (1.0 / float(self.num_batches_tracked) if self.momentum is None
+                      else self.momentum)
+            self.running_mean.mul_(1.0 - factor).add_(factor * mean)
+            self.running_var.mul_(1.0 - factor).add_(factor * var)
+        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
+        return y.to(x.dtype)
 
 
 class L2Normalization(nn.Module):

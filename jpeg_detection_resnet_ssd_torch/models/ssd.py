@@ -22,6 +22,7 @@ from torch import nn
 
 from jpeg_detection_resnet_ssd_torch.boxes.anchors import AnchorSpec, build_anchors
 from jpeg_detection_resnet_ssd_torch.boxes.decode import decode_detections
+from jpeg_detection_resnet_ssd_torch.models import layers
 from jpeg_detection_resnet_ssd_torch.models.layers import (
     BatchNorm,
     Conv,
@@ -104,7 +105,8 @@ class _SSDHead(nn.Module):
             n_conf = conf.weight.shape[0]
             weight = torch.cat([conf.weight, loc.weight], dim=0).to(src.dtype)
             bias = torch.cat([conf.bias, loc.bias], dim=0).to(src.dtype)
-            out = nchw_to_nhwc(F.conv2d(nhwc_to_nchw(src), weight, bias, 1, 1))  # 3x3 SAME
+            # With the switch on, dW flows back through the cat to both groups.
+            out = layers.conv3x3_same(src, weight, bias)
             confs.append(out[..., :n_conf].reshape(batch, -1, n_total))
             locs.append(out[..., n_conf:].reshape(batch, -1, 4))
         mbox_conf = torch.cat(confs, dim=1)

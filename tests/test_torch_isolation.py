@@ -13,7 +13,8 @@ import torch
 
 import jpeg_detection_resnet_ssd_torch as port
 from jpeg_detection_resnet_ssd_torch.models import build_model, make_inference_fn
-from jpeg_detection_resnet_ssd_torch.boxes.anchors import AnchorSpec
+from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
+from jpeg_detection_resnet_ssd_torch.train import ExperimentConfig, Trainer, build_trainer, fit
 from jpeg_detection_resnet_ssd_torch.utils import cuda_times_ms, resolve_device
 
 torch.set_num_threads(1)
@@ -91,6 +92,15 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         make_inference_fn(n_classes=20, spec=AnchorSpec())
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         cuda_times_ms(lambda: None)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        TargetEncoder(AnchorSpec(), ((1, 1),) * 6)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_trainer(ExperimentConfig())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        fit(ExperimentConfig(), [])
+    model = torch.nn.Linear(2, 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Trainer(model, None, torch.optim.SGD(model.parameters(), lr=0.1))
 
 
 def test_unported_models_name_their_roadmap_item():
@@ -101,8 +111,8 @@ def test_unported_models_name_their_roadmap_item():
 
 
 def test_cpu_path_builds_nothing(monkeypatch):
-    """On the CPU the NMS wrapper never reaches nvcc or the library."""
-    from jpeg_detection_resnet_ssd_torch.ops import _build, batched_nms
+    """On the CPU the kernels' wrappers never reach nvcc or a library."""
+    from jpeg_detection_resnet_ssd_torch.ops import _build, batched_nms, bipartite_match, conv_grad
 
     def fail(name):
         raise AssertionError(f"tried to load {name}")
@@ -110,3 +120,6 @@ def test_cpu_path_builds_nothing(monkeypatch):
     monkeypatch.setattr(_build, "load", fail)
     keep = batched_nms.batched_nms_mask(torch.zeros(1, 2, 4), torch.ones(1, 2))
     assert keep.shape == (1, 2)
+    assert bipartite_match.bipartite_match(torch.ones(1, 2, 3)).shape == (1, 2)
+    assert conv_grad.conv3x3_filter_grad(torch.ones(1, 2, 2, 3), torch.ones(1, 2, 2, 4)).shape == (3, 3, 3, 4)
+    assert (batched_nms.LAUNCHES, bipartite_match.LAUNCHES, conv_grad.LAUNCHES) == (0, 0, 0)

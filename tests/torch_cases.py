@@ -54,3 +54,31 @@ def raw_predictions(seed=0, batch=2):
         [probs, offsets, np.broadcast_to(anchors, (batch, n, 8))], axis=-1
     ).astype(np.float32)
     return np.ascontiguousarray(y)
+
+
+def gt_batch(rng, n_valid, max_gt=64, img=300):
+    """Padded GT `(B, max_gt, 5)` float32 rows (class, xmin, ymin, xmax, ymax)
+    in pixels and a `(B, max_gt)` mask, `n_valid[i]` boxes in image i.  The
+    second box of an image repeats the first (so matching meets exact ties)
+    and a third is a few pixels wide."""
+    gt = np.zeros((len(n_valid), max_gt, 5), np.float32)
+    mask = np.zeros((len(n_valid), max_gt), bool)
+    for i, k in enumerate(n_valid):
+        xy0 = rng.uniform(0, img - 60, (k, 2))
+        xy1 = np.minimum(xy0 + rng.uniform(8, 220, (k, 2)), img)
+        rows = np.concatenate([rng.integers(1, N_CLASSES + 1, (k, 1)), xy0, xy1], -1)
+        if k >= 2:
+            rows[1] = rows[0]
+        if k >= 3:
+            rows[2, 3:] = rows[2, 1:3] + 3.0
+        gt[i, :k] = rows
+        mask[i, :k] = True
+    return gt, mask
+
+
+def tie_sims(rng, shape):
+    """Similarities on a coarse grid in [-0.25, 1): many exact ties, some
+    rows below zero everywhere (never matched)."""
+    sims = rng.integers(-4, 16, shape).astype(np.float32) / 16
+    sims[:, -3:] = -1.0
+    return sims
