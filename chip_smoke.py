@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; one card, nvcc
 
-Two paths, each at the full width of `ssd300_ssd_custom`:
+Three paths, each at the full width of `ssd300_ssd_custom`:
   * inference: `build_model` -> forward on seeded DCT planes ->
     `make_inference_fn` (candidate selection, batched greedy NMS on the CUDA
     kernel, global top-200) -> (B, 200, 6) detections;
@@ -11,11 +11,15 @@ Two paths, each at the full width of `ssd300_ssd_custom`:
     compute_dtype="bfloat16", batch_size=32))` with a `TargetEncoder` whose
     greedy bipartite matching runs on the CUDA kernel, driven by `fit` for 5
     steps; the filter gradient of every eligible 3x3 conv runs on the CUDA
-    kernel.
+    kernel;
+  * training with device augmentation: the same `fit` on 44-block (352 px)
+    source maps through `make_dct_detection_augment_v3(out_y_blocks=38)`
+    (photometric, expand + min-IoU crop + resize, hflip on the CUDA flip
+    kernel) and a `TargetEncoder(AnchorSpec(304, 304))`.
 
 Phases (any failure exits non-zero):
   1. card name and power limit (nvidia-smi);
-  2. build the three kernels from the sources in the checkout, one nvcc each,
+  2. build the four kernels from the sources in the checkout, one nvcc each,
      all started together; print ptxas' registers, shared memory, spills;
   3. NMS kernel against its plain version at the serving shape (N=640,
      K=400) and a ragged one, with pairs at IoU exactly the threshold:
@@ -27,6 +31,15 @@ Phases (any failure exits non-zero):
   5. filter-gradient kernel against its plain version at each of the 24
      conv shapes of the train step at batch 32, in bf16 and float32
      (max |got - ref| <= 1e-4 max |ref|), and against a float64 oracle;
+  5b. flip kernel against its plain version at the chain's two shapes in
+     float32, a ragged shape and in bf16: bit for bit;
+  5c. the augmentation chain's apply functions on the card (flip kernel,
+     TF32 off) against the CPU (plain versions) with one set of host draws,
+     at batch 4 from 44-block maps, for photometric True and "pixel_hsv" and
+     for requantization at quality 75: GT masks exact, boxes within 1e-3 px,
+     coefficients within 1e-5 (1e-4 pixel_hsv) of the largest CPU value;
+     requantized, at most 1e-4 of them one quantizer step apart; flip
+     launches read around the card's run;
   6. inference: a batch-32 bf16 and a batch-1 f32 request through both
      candidate selectors, NMS launch count read around them; kernel and
      plain NMS give identical detections; the f32 forward agrees with the
@@ -36,6 +49,10 @@ Phases (any failure exits non-zero):
      rows; kernel launch counts reset just before and read just after
      (matching 1 and filter gradient 24 per step); losses finite; the
      checkpoint restores to the same step and weights;
+  7b. training with device augmentation: `fit` for 5 steps on 44-block
+     batches with the same GT; launch counts reset just before and read
+     just after (matching 1, filter gradient 24, flip 2 per step); losses
+     finite;
   8. one float32 train step at batch 2 on the card (kernels, TF32 off)
      against the same step on the port's CPU path (plain versions) from the
      same weights and batch: targets, loss, head gradients, updated
@@ -47,7 +64,14 @@ Phases (any failure exits non-zero):
      matching), interleaved; the matching kernel, its plain version and
      bound on the train batch's IoUs, and on phase 4's as a worst case; the
      filter-gradient kernel, its plain version, cuDNN's filter gradient and
-     the bound per shape, and their sums per step;
+     the bound per shape, and their sums per step; (9c) the augment alone at
+     batch 32, its host time and kernel launches; the flip kernel per launch
+     at both shapes (queued behind a device sleep, so the host's launch rate
+     does not bound it; cycling through inputs and outputs 4x the L2, so
+     from main memory, and also warm in the L2) beside its bound and its
+     plain version; the augmented train step against the un-augmented one in
+     four interleaved pairs, with the difference per pair, and a profiler
+     window of the augmented step;
  10. the `kernels` JSON line, the card line, and the final JSON line.
 
 Weights are the port's seeded init (torch.Generator seeded 0); for inference
@@ -73,8 +97,9 @@ from torch.utils.flop_counter import FlopCounterMode
 H100_BYTES_PER_S = 3.35e12  # HBM3, NVIDIA data sheet (SXM)
 H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, same source
 H100_BF16_FLOPS = 989e12  # bf16 dense on the tensor cores, same source
+H100_L2_BYTES = 50 * 2**20  # L2 cache, same source
 NMS_OPS_PER_PAIR = 16  # 2x(min, max, sub, add d, max 0), mul, add, sub, max, div, cmp
-KERNELS = ("batched_nms", "bipartite_match", "conv3x3_wgrad")
+KERNELS = ("batched_nms", "bipartite_match", "conv3x3_wgrad", "dct_flip")
 # The GT of every image in the JAX package's train benchmark (`bench.py:136-140`):
 # (class, xmin, ymin, xmax, ymax) in pixels of the 300x300 image.  The train
 # batches that `fit` and the step timings run carry the same two boxes.
@@ -143,12 +168,14 @@ def bench_gt(b, max_gt=64):
     return gt, mask
 
 
-def train_batch(rng, gt, mask, dev):
+def train_batch(rng, gt, mask, dev, blocks=38):
     """A synthetic train batch on `dev`: DCT planes as `bench.py` makes them
-    (Y ~ N(0, 100), CbCr ~ N(0, 30)) and the padded GT `gt`, `mask`."""
+    (Y ~ N(0, 100), CbCr ~ N(0, 30)), `blocks` luma blocks a side (38: the
+    304-px input frame; 44: the 352-px source of the augmented step), and
+    the padded GT `gt`, `mask`."""
     b = len(gt)
-    y = rng.normal(0, 100, (b, 38, 38, 64)).astype(np.float32)
-    cbcr = rng.normal(0, 30, (b, 19, 19, 128)).astype(np.float32)
+    y = rng.normal(0, 100, (b, blocks, blocks, 64)).astype(np.float32)
+    cbcr = rng.normal(0, 30, (b, blocks // 2, blocks // 2, 128)).astype(np.float32)
     return {"inputs": (torch.from_numpy(y).to(dev), torch.from_numpy(cbcr).to(dev)),
             "gt": torch.from_numpy(gt).to(dev), "gt_mask": torch.from_numpy(mask).to(dev)}
 
@@ -182,6 +209,11 @@ def wgrad_bound(p: int, c: int, k: int, dtype: torch.dtype) -> tuple[float, str]
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def flip_bound(x: torch.Tensor) -> tuple[float, str]:
+    """Read x once, write the flipped copy once; no arithmetic to speak of."""
+    return 2 * x.numel() * x.element_size() / H100_BYTES_PER_S * 1e3, "bytes"
+
+
 def calibrate_batch_norm(model, inputs) -> None:
     """Set every BatchNorm's running statistics to those of `inputs` (one
     train-mode forward with a cumulative average), then return to eval."""
@@ -209,6 +241,37 @@ def timed(fn, iters, warmup_s=0.5):
 
     times = cuda_times_ms(fn, iters=iters, windows=5, warmup_s=warmup_s)
     return float(np.median(times)), f"[{min(times):.4f}-{max(times):.4f}]"
+
+
+def queued_ms(fn, x, iters=100, windows=5, cold=True):
+    """Device ms per call of `fn` on a short kernel's input `x`.  Each window
+    of `iters` calls is queued behind a ~20 ms device sleep, so the events
+    time the calls back to back on the device and not the host's launch rate.
+    With `cold`, the calls cycle through copies of `x` that together hold 4x
+    the L2, and each window keeps its outputs alive, so every call reads its
+    input from and writes its output to main memory; without, every call
+    flips the same `x` into the output the allocator hands back each time,
+    both warm in the L2."""
+    n_copies = -(-4 * H100_L2_BYTES // (x.numel() * x.element_size())) if cold else 1
+    inputs = [x.clone() for _ in range(n_copies)]
+    times = []
+    for w in range(windows + 1):  # the first window warms the allocator's cache
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)
+        start.record()
+        outs = []
+        for i in range(iters):
+            if cold:
+                outs.append(fn(inputs[i % n_copies]))
+            else:
+                fn(x)
+        end.record()
+        end.synchronize()
+        del outs
+        if w:
+            times.append(start.elapsed_time(end) / iters)
+    return float(np.median(times)), f"[{min(times):.5f}-{max(times):.5f}]"
 
 
 def build_kernels() -> None:
@@ -310,6 +373,75 @@ def check_wgrad(dev) -> float:
     check(err <= 1e-5 * float(oracle.abs().max()),
           f"dW f32 kernel vs float64 oracle at (3, 7, 9, 40->24): max |diff| {err:.3g}")
     return worst
+
+
+def check_flip(dev) -> float:
+    from jpeg_detection_resnet_ssd_torch.ops import dct_flip
+
+    gen = torch.Generator().manual_seed(6)
+    worst = 0.0
+    for shape, dtype in (((32, 38, 38, 64), torch.float32), ((32, 19, 19, 128), torch.float32),
+                         ((7, 13, 9, 192), torch.float32), ((32, 38, 38, 64), torch.bfloat16)):
+        x = (50 * torch.randn(shape, generator=gen)).to(dev, dtype)
+        x.view(-1)[:2] = 0.0  # 0.0 in an odd column flips to -0.0, as the multiply gives
+        before = dct_flip.LAUNCHES
+        got = dct_flip.dct_flip_horizontal(x, impl="kernel")
+        torch.cuda.synchronize()
+        ref = dct_flip.dct_flip_horizontal_reference(x)
+        bits = torch.int32 if dtype == torch.float32 else torch.int16
+        worst = max(worst, float((got.float() - ref.float()).abs().max()))
+        check(dct_flip.LAUNCHES == before + 1 and torch.equal(got.view(bits), ref.view(bits)),
+              f"flip {tuple(shape)} {str(dtype)[6:]}: kernel equals its plain version bit for bit")
+    return worst
+
+
+def augment_close(got, ref, rtol, quality=None) -> tuple[bool, str]:
+    """(y, cbcr, gt, mask) on the card vs the CPU: masks exact, boxes within
+    1e-3 px, coefficients within rtol of the largest CPU value; requantized,
+    at most 1e-4 of them one quantizer step apart."""
+    from jpeg_detection_resnet_ssd_torch.ops.jpeg_quant import quant_tables
+
+    got = [t.cpu() for t in got]
+    ok = torch.equal(got[3], ref[3])
+    box = float((got[2] - ref[2]).abs().max())
+    ok &= box <= 1e-3
+    notes = [f"boxes max |diff| {box:.3g} px"]
+    for i, (a, b) in enumerate(zip(got[:2], ref[:2])):
+        if quality is None:
+            err, scale = float((a - b).abs().max()), float(b.abs().max())
+            ok &= err <= rtol * scale
+            notes.append(f"{('y', 'cbcr')[i]} max |diff| {err:.3g} (scale {scale:.4g})")
+            continue
+        qy, qc = quant_tables(quality)
+        q = torch.from_numpy(qy if i == 0 else np.concatenate([qc, qc])).float()
+        diff = a != b
+        n = int(diff.sum())
+        ok &= n <= 1e-4 * a.numel() and bool(
+            torch.allclose((a - b).abs()[diff], q.expand_as(a)[diff], rtol=1e-6))
+        notes.append(f"{('y', 'cbcr')[i]} {n} of {a.numel()} one step apart")
+    return bool(ok), "; ".join(notes)
+
+
+def check_chain(dev) -> None:
+    from jpeg_detection_resnet_ssd_torch.ops import _draws, dct_flip, make_dct_detection_augment_v3
+
+    rng = np.random.default_rng(10)
+    batch = train_batch(rng, *bench_gt(4), "cpu", blocks=44)
+    for photometric, quality in ((True, None), ("pixel_hsv", None), (True, 75)):
+        kw = dict(out_y_blocks=38, photometric=photometric, requantize_quality=quality)
+        gpu, cpu = make_dct_detection_augment_v3(**kw), make_dct_detection_augment_v3(**kw, device="cpu")
+        draws = cpu.sample(len(batch["gt"]), 44, 44, torch.Generator().manual_seed(11))
+        dct_flip.LAUNCHES = 0
+        out = gpu.apply(gpu.to_device(batch), _draws.to_device(draws, dev))
+        torch.cuda.synchronize()
+        launches = dct_flip.LAUNCHES
+        ref = cpu.apply(cpu.to_device(batch), draws)
+        ok, notes = augment_close([*out["inputs"], out["gt"], out["gt_mask"]],
+                                  [*ref["inputs"], ref["gt"], ref["gt_mask"]],
+                                  1e-4 if photometric == "pixel_hsv" else 1e-5, quality)
+        check(ok and launches == 2, f"chain photometric={photometric!r} requantize={quality}: card "
+                                    f"= CPU ({notes}); {launches} flip launches, "
+                                    f"{int(ref['gt_mask'].sum())} GT boxes kept")
 
 
 def run_inference(dev, card):
@@ -440,7 +572,7 @@ def run_inference(dev, card):
             "bound_ms": bound_ms, "bound_by": bound_by}
 
 
-def profile_steps(step, card, step_ms, n=3):
+def profile_steps(step, card, step_ms, n=3, label="train steps with both kernels"):
     """Where a train step's time goes: torch.profiler over n steps (after
     one untraced); the kernels' summed device time per step against the
     step's time without the profiler (`step_ms`, CUDA events), and the
@@ -458,7 +590,7 @@ def profile_steps(step, card, step_ms, n=3):
     if busy_ms == 0:
         print("    profiler: no device time recorded; device busy share not measured")
         return
-    print(f"    profiler, {n} train steps with both kernels: kernels busy {busy_ms:.3f} ms per step, "
+    print(f"    profiler, {n} {label}: kernels busy {busy_ms:.3f} ms per step, "
           f"{sum(e.count for e in kernels) // n} kernel launches per step; against the "
           f"{step_ms:.3f} ms step the device is idle {100 * max(0.0, 1 - busy_ms / step_ms):.1f}% "
           f" [{card}]")
@@ -672,7 +804,124 @@ def run_training(dev, card, stress_sims):
         "wgrad": {"launches": launches["wgrad"], **sums,
                   "bound_by": max(bound_by, key=bound_by.get)},
         "wgrad_step_err": step_err,
+        "trainer": trainer,
+        "batch": batch,
     }
+
+
+def run_augmented_training(dev, card, trainer, batch):
+    """Phase 7b (checks) and 9c (timings): the train step through the device
+    augmentation chain; `trainer` and `batch` are phase 7's un-augmented
+    ones, timed against it."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
+    from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
+    from jpeg_detection_resnet_ssd_torch.ops import bipartite_match as bm
+    from jpeg_detection_resnet_ssd_torch.ops import conv_grad, dct_flip, make_dct_detection_augment_v3
+    from jpeg_detection_resnet_ssd_torch.train import ExperimentConfig, fit
+
+    print("[7b] training with device augmentation: fit, 5 steps at batch 32 in bf16, 352-px "
+          "source maps, all three kernels on")
+    rng = np.random.default_rng(12)
+    batches = [train_batch(rng, *bench_gt(32), dev, blocks=44) for _ in range(5)]
+    cfg = ExperimentConfig(model="ssd300_ssd_custom", pallas_wgrad=True, compute_dtype="bfloat16",
+                           batch_size=32, epochs=5, steps_per_epoch=1)
+    encoder = TargetEncoder(AnchorSpec(img_height=304, img_width=304),
+                            ssd_predictor_sizes("resnet_custom"), bipartite_impl="auto")
+    aug = make_dct_detection_augment_v3(out_y_blocks=38)
+    t0 = time.perf_counter()
+    bm.LAUNCHES = conv_grad.LAUNCHES = dct_flip.LAUNCHES = 0
+    aug_trainer, history = fit(cfg, batches, target_encoder=encoder, augment_fn=aug, log_every=1)
+    torch.cuda.synchronize()
+    launches = {"match": bm.LAUNCHES, "wgrad": conv_grad.LAUNCHES, "flip": dct_flip.LAUNCHES}
+    print(f"    fit: {time.perf_counter() - t0:.2f} s; losses "
+          + ", ".join(f"{r['total_loss']:.4f}" for r in history))
+    print(f"    kernel launches on the augmented training path: matching {launches['match']}, "
+          f"filter gradient {launches['wgrad']}, flip {launches['flip']}")
+    check(len(history) == 5 and all(np.isfinite(r["total_loss"]) for r in history),
+          "5 augmented steps, every loss finite")
+    check(launches["match"] == 5, "the matching kernel ran once per step")
+    check(launches["wgrad"] == 24 * 5, "the filter-gradient kernel ran 24 times per step")
+    check(launches["flip"] == 2 * 5, "the flip kernel ran twice per step (luma and chroma)")
+
+    print(f"[9c] augmentation timings (CUDA events; median of 5 windows [min-max]) on {card}")
+    src = batches[0]
+    gen = torch.Generator().manual_seed(13)
+    aug_ms, aug_spread = timed(lambda: aug(src, gen), 10)
+    host_ms = []
+    for _ in range(10):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aug(src, gen)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        aug(src, gen)
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    n_kernels = sum(e.count for e in kernels)
+    busy_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+    print(f"    augment alone (v3, photometric + expand/crop/resize + flip), batch 32 from 44 "
+          f"blocks: {aug_ms:.4f} ms {aug_spread}; host time to return {float(np.median(host_ms)):.4f} "
+          f"ms [{min(host_ms):.4f}-{max(host_ms):.4f}] (median of 10, host clock); "
+          f"{n_kernels} device kernels and copies, busy {busy_ms:.4f} ms (profiler)  [{card}]")
+    for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:6]:
+        print(f"      {e.self_device_time_total / 1e3:9.4f} ms  x{e.count:<4d} {e.key[:90]}")
+
+    flipped = aug(src, gen)["inputs"]
+    sums = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for x in flipped:
+        k_ms, k_spread = queued_ms(lambda t: dct_flip.dct_flip_horizontal(t, impl="kernel"), x)
+        p_ms, p_spread = queued_ms(dct_flip.dct_flip_horizontal_reference, x)
+        warm_ms, warm_spread = queued_ms(lambda t: dct_flip.dct_flip_horizontal(t, impl="kernel"),
+                                         x, cold=False)
+        ev_ms, ev_spread = timed(lambda: dct_flip.dct_flip_horizontal(x, impl="kernel"), 50,
+                                 warmup_s=0.1)
+        b_ms, b_by = flip_bound(x)
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms)):
+            sums[key] += v
+        print(f"    flip {tuple(x.shape)} {str(x.dtype)[6:]}, from main memory: kernel {k_ms:.5f} ms "
+              f"{k_spread} ({100 * b_ms / k_ms:.1f}% of the bound); plain {p_ms:.5f} ms {p_spread}; "
+              f"bound {b_ms:.5f} ms ({b_by}); library: none; the same input and output warm in the "
+              f"L2: kernel {warm_ms:.5f} ms {warm_spread}; one call at the host's rate "
+              f"{ev_ms:.5f} ms {ev_spread}  [{card}]")
+    print(f"    flip per train step (2 launches): kernel {sums['ms']:.5f} ms, plain "
+          f"{sums['plain_ms']:.5f} ms, bound {sums['bound_ms']:.5f} ms  [{card}]")
+
+    # Four interleaved pairs, alternating which arm goes first; the host
+    # moves the step by tens of ms from window to window, so the difference
+    # is read pair by pair.
+    step_ms = {"aug": [], "plain": []}
+    for pair in range(4):
+        for arm in (("aug", "plain") if pair % 2 == 0 else ("plain", "aug")):
+            fn = ((lambda: aug_trainer.train_step(src, gen)) if arm == "aug"
+                  else (lambda: trainer.train_step(batch)))
+            step_ms[arm].append(timed(fn, 2, warmup_s=1.0))
+    for arm, label in (("aug", "augmented (352-px source through the chain)"),
+                       ("plain", "un-augmented (304-px input, no chain)")):
+        ms = [m for m, _ in step_ms[arm]]
+        print(f"    train step, batch 32 bf16, all kernels, {label}: " + ", ".join(
+            f"{m:.3f} ms {spread}" for m, spread in step_ms[arm])
+            + f" -> {32e3 / np.mean(ms):.1f} images/s  [{card}]")
+    diffs = [a - p for (a, _), (p, _) in zip(step_ms["aug"], step_ms["plain"])]
+    resolved = min(diffs) > 0 or max(diffs) < 0
+    print("    augmented minus un-augmented, per pair: " + ", ".join(f"{d:+.3f}" for d in diffs)
+          + f" ms; median {float(np.median(diffs)):+.3f} ms "
+          + ("(every pair agrees in sign)" if resolved else "(not resolved: the pairs differ in sign)"))
+    host_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        aug_trainer.train_step(src, gen)
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    print(f"    augmented train step host time to return: {float(np.median(host_ms)):.3f} ms "
+          f"[{min(host_ms):.3f}-{max(host_ms):.3f}] (median of 5, host clock)")
+    profile_steps(lambda: aug_trainer.train_step(src, gen), card,
+                  float(np.median([m for m, _ in step_ms["aug"]])),
+                  label="augmented train steps with all kernels")
+    return {"launches": launches["flip"], **sums, "bound_by": "bytes"}
 
 
 def main() -> int:
@@ -709,8 +958,15 @@ def main() -> int:
     print(f"[5] filter-gradient kernel against its plain version (tolerance {WGRAD_TOL:g} max |ref|)")
     wgrad_err = check_wgrad(dev)
 
+    print("[5b] flip kernel against its plain version (bit for bit)")
+    flip_err = check_flip(dev)
+
+    print("[5c] augmentation chain: card (flip kernel, TF32 off) vs CPU, one set of host draws")
+    check_chain(dev)
+
     nms = run_inference(dev, card)
     train = run_training(dev, card, stress_sims)
+    flip = run_augmented_training(dev, card, train["trainer"], train["batch"])
 
     print(f"[10] done in {time.perf_counter() - t_start:.1f} s")
     source = "jpeg_detection_resnet_ssd_torch/ops/csrc/{}.cu"
@@ -724,6 +980,9 @@ def main() -> int:
         {"name": "conv3x3_filter_grad", "route": "cuda", "source": source.format("conv3x3_wgrad"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_conv_grad.py:128",
          "max_abs_err": max(wgrad_err, train["wgrad_step_err"]), **train["wgrad"]},
+        {"name": "dct_flip_horizontal", "route": "cuda", "source": source.format("dct_flip"),
+         "replaces": "jpeg_detection_resnet_ssd_tpu/ops/dct_augment.py:75",
+         "max_abs_err": flip_err, "library_ms": None, **flip},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

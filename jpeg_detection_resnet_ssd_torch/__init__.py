@@ -9,11 +9,14 @@ arrays.
 It imports torch, numpy and the standard library only: never jax, flax or
 the JAX package.  Entry points (`models.build_model`,
 `models.make_inference_fn`, `boxes.TargetEncoder`, `train.Trainer`,
-`train.build_trainer`, `train.fit`) run on the CUDA device unless the caller
+`train.build_trainer`, `train.fit`, the `ops.make_dct_detection_augment*`
+makers) run on the CUDA device unless the caller
 passes `device="cpu"`, and raise when no CUDA device is present.
 
-The hand-written kernels of the ported slices (`ops/csrc/`): the batched
-greedy NMS (`ops.batched_nms`), the greedy bipartite GT-anchor matching
-(`ops.bipartite_match`) and the filter gradient of 3x3 convolutions
-(`ops.conv_grad`).
+The hand-written kernels of the ported slices (`ops/csrc/`), one for each
+Pallas kernel of the JAX package: the batched greedy NMS
+(`ops.batched_nms`), the greedy bipartite GT-anchor matching
+(`ops.bipartite_match`), the filter gradient of 3x3 convolutions
+(`ops.conv_grad`) and the coefficient-space horizontal flip of the device
+augmentation chain (`ops.dct_flip`, used by `ops.dct_detect_augment`).
 """

@@ -14,9 +14,13 @@ import torch
 from jpeg_detection_resnet_ssd_torch.boxes import decode, geometry
 from jpeg_detection_resnet_ssd_torch.boxes.anchors import AnchorSpec, build_anchors
 from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
-from jpeg_detection_resnet_ssd_torch.ops import batched_nms, bipartite_match, conv_grad
+from jpeg_detection_resnet_ssd_torch.ops import _draws, batched_nms, bipartite_match, conv_grad, dct_flip
+from jpeg_detection_resnet_ssd_torch.ops.dct_detect_augment import make_dct_detection_augment_v3
 
-from torch_cases import BORDERS, N_CLASSES, gt_batch, nms_problems, raw_predictions, tie_sims
+from torch_cases import (
+    BORDERS, N_CLASSES, assert_augment_matches, augment_source, gt_batch, nms_problems,
+    raw_predictions, tie_sims,
+)
 
 torch.set_num_threads(1)
 
@@ -111,3 +115,49 @@ def test_filter_grad_kernel_matches_reference(cuda, shape, dtype):
     ref = conv_grad.conv3x3_filter_grad_reference(x, dy)
     assert got.shape == (3, 3, c, k) and got.dtype == torch.float32
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+
+
+@pytest.mark.parametrize("shape", [(32, 38, 38, 64), (32, 19, 19, 128), (7, 3, 5, 9, 192),
+                                   (3, 1, 1, 64)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flip_kernel_equals_reference_bit_for_bit(cuda, shape, dtype):
+    gen = torch.Generator(device="cpu").manual_seed(len(shape))
+    x = (50 * torch.randn(shape, generator=gen)).to(cuda, dtype)
+    x.view(-1)[:2] = 0.0  # a zero flips to -0.0 in an odd column, as the multiply gives
+    before = dct_flip.LAUNCHES
+    got = dct_flip.dct_flip_horizontal(x, impl="kernel")
+    torch.cuda.synchronize()
+    assert dct_flip.LAUNCHES == before + 1
+    bits = torch.int32 if dtype == torch.float32 else torch.int16
+    assert torch.equal(got.view(bits), dct_flip.dct_flip_horizontal_reference(x).view(bits))
+
+
+def test_flip_kernel_rejects_what_it_does_not_take(cuda):
+    x = torch.zeros(2, 3, 4, 64, device=cuda)
+    with pytest.raises(TypeError):
+        dct_flip.dct_flip_horizontal(x.half())
+    with pytest.raises(ValueError, match="contiguous"):
+        dct_flip.dct_flip_horizontal(x.transpose(0, 1))
+    with pytest.raises(ValueError, match="aligned"):
+        dct_flip.dct_flip_horizontal(torch.zeros(1 + 3 * 4 * 64, device=cuda)[1:].view(3, 4, 64))
+    with pytest.raises(ValueError, match="multiple of 64"):
+        dct_flip.dct_flip_horizontal(torch.zeros(2, 3, 4, 96, device=cuda))
+
+
+@pytest.mark.parametrize("photometric,quality", [(True, None), ("pixel_hsv", None), (True, 75)])
+def test_chain_on_the_card_equals_the_cpu(cuda, photometric, quality):
+    """The v3 chain's apply with one set of host draws, on the card (B3, TF32
+    off) and on the CPU (plain versions)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    batch = augment_source(4, 12)
+    kw = dict(out_y_blocks=8, photometric=photometric, requantize_quality=quality)
+    gpu, cpu = make_dct_detection_augment_v3(**kw), make_dct_detection_augment_v3(**kw, device="cpu")
+    draws = cpu.sample(4, 12, 12, torch.Generator().manual_seed(0))
+    before = dct_flip.LAUNCHES
+    got = gpu.apply(gpu.to_device(batch), _draws.to_device(draws, cuda))
+    torch.cuda.synchronize()
+    assert dct_flip.LAUNCHES == before + 2
+    ref = cpu.apply(cpu.to_device(batch), draws)
+    assert_augment_matches([t.cpu() for t in (*got["inputs"], got["gt"], got["gt_mask"])],
+                           [*ref["inputs"], ref["gt"], ref["gt_mask"]],
+                           rtol=1e-4 if photometric == "pixel_hsv" else 1e-5, quality=quality)

@@ -14,6 +14,11 @@ import torch
 import jpeg_detection_resnet_ssd_torch as port
 from jpeg_detection_resnet_ssd_torch.models import build_model, make_inference_fn
 from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
+from jpeg_detection_resnet_ssd_torch.ops import (
+    make_dct_detection_augment,
+    make_dct_detection_augment_v2,
+    make_dct_detection_augment_v3,
+)
 from jpeg_detection_resnet_ssd_torch.train import ExperimentConfig, Trainer, build_trainer, fit
 from jpeg_detection_resnet_ssd_torch.utils import cuda_times_ms, resolve_device
 
@@ -101,6 +106,10 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     model = torch.nn.Linear(2, 2)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(model, None, torch.optim.SGD(model.parameters(), lr=0.1))
+    for maker in (make_dct_detection_augment, make_dct_detection_augment_v2,
+                  make_dct_detection_augment_v3):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            maker(38)
 
 
 def test_unported_models_name_their_roadmap_item():
@@ -112,7 +121,9 @@ def test_unported_models_name_their_roadmap_item():
 
 def test_cpu_path_builds_nothing(monkeypatch):
     """On the CPU the kernels' wrappers never reach nvcc or a library."""
-    from jpeg_detection_resnet_ssd_torch.ops import _build, batched_nms, bipartite_match, conv_grad
+    from jpeg_detection_resnet_ssd_torch.ops import (
+        _build, batched_nms, bipartite_match, conv_grad, dct_flip,
+    )
 
     def fail(name):
         raise AssertionError(f"tried to load {name}")
@@ -122,4 +133,10 @@ def test_cpu_path_builds_nothing(monkeypatch):
     assert keep.shape == (1, 2)
     assert bipartite_match.bipartite_match(torch.ones(1, 2, 3)).shape == (1, 2)
     assert conv_grad.conv3x3_filter_grad(torch.ones(1, 2, 2, 3), torch.ones(1, 2, 2, 4)).shape == (3, 3, 3, 4)
-    assert (batched_nms.LAUNCHES, bipartite_match.LAUNCHES, conv_grad.LAUNCHES) == (0, 0, 0)
+    assert dct_flip.dct_flip_horizontal(torch.ones(1, 2, 3, 128)).shape == (1, 2, 3, 128)
+    aug = make_dct_detection_augment_v3(8, device="cpu")
+    out = aug({"inputs": (torch.ones(2, 12, 12, 64), torch.ones(2, 6, 6, 128)),
+               "gt": torch.zeros(2, 4, 5), "gt_mask": torch.zeros(2, 4, dtype=torch.bool)})
+    assert out["inputs"][0].shape == (2, 8, 8, 64)
+    assert (batched_nms.LAUNCHES, bipartite_match.LAUNCHES, conv_grad.LAUNCHES,
+            dct_flip.LAUNCHES) == (0, 0, 0, 0)

@@ -6,6 +6,7 @@ import numpy as np
 
 from jpeg_detection_resnet_ssd_torch.boxes.anchors import AnchorSpec, build_anchors
 from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
+from jpeg_detection_resnet_ssd_torch.ops.jpeg_quant import quant_tables
 
 N_CLASSES = 20
 BORDERS = {"half": 0.0, "include": 1.0, "exclude": -1.0}
@@ -82,3 +83,50 @@ def tie_sims(rng, shape):
     sims = rng.integers(-4, 16, shape).astype(np.float32) / 16
     sims[:, -3:] = -1.0
     return sims
+
+
+def augment_source(b=4, h8=12, seed=0):
+    """A small augmentation batch: (B, h8, h8, 64) / (B, h8/2, h8/2, 128)
+    planes and padded GT in source pixels: three boxes per image, one
+    hugging the right edge in image 2, one masked out in image 1, and an
+    image (the last) without valid GT."""
+    rng = np.random.default_rng(seed)
+    y = rng.normal(0, 100, (b, h8, h8, 64)).astype(np.float32)
+    cbcr = rng.normal(0, 30, (b, h8 // 2, h8 // 2, 128)).astype(np.float32)
+    s = h8 * 8 / 96.0
+    gt = np.zeros((b, 6, 5), np.float32)
+    gt[:, 0] = [3, 10 * s, 12 * s, 60 * s, 70 * s]
+    gt[:, 1] = [5, 40 * s, 20 * s, 90 * s, 80 * s]
+    gt[:, 2] = [1, 3 * s, 3 * s, 30 * s, 25 * s]
+    gt[2, 3] = [7, 80 * s, 2 * s, 95 * s, 94 * s]
+    mask = np.zeros((b, 6), bool)
+    mask[:, :3] = True
+    mask[2, 3] = True
+    mask[1, 2] = False
+    mask[-1] = False
+    return {"inputs": (y, cbcr), "gt": gt, "gt_mask": mask}
+
+
+def assert_augment_matches(got, ref, rtol=1e-5, quality=None):
+    """got, ref: (y, cbcr, gt, gt_mask) as arrays or CPU tensors.  Masks
+    exactly equal, boxes within 1e-3 px, coefficients within `rtol` of the
+    largest reference value; after requantization at `quality`, at most
+    1e-4 of the coefficients differ, each by exactly one quantizer step (a
+    value at a rounding tie)."""
+    got = [np.asarray(t) for t in got]
+    ref = [np.asarray(t) for t in ref]
+    np.testing.assert_array_equal(got[3], ref[3])
+    np.testing.assert_allclose(got[2], ref[2], rtol=0, atol=1e-3)
+    if quality is not None:
+        qy, qc = quant_tables(quality)
+        steps = (qy.astype(np.float32), np.concatenate([qc, qc]).astype(np.float32))
+    for i, (a, b) in enumerate(zip(got[:2], ref[:2])):
+        assert a.shape == b.shape
+        if quality is None:
+            err = np.abs(a - b).max()
+            assert err <= rtol * np.abs(b).max(), (i, err, np.abs(b).max())
+            continue
+        diff = a != b
+        assert diff.sum() <= 1e-4 * a.size, (i, int(diff.sum()))
+        q = np.broadcast_to(steps[i], a.shape)
+        np.testing.assert_allclose(np.abs(a - b)[diff], q[diff], rtol=1e-6)
