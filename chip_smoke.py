@@ -30,7 +30,10 @@ Phases (any failure exits non-zero):
      similarities: indices exactly equal;
   5. filter-gradient kernel against its plain version at each of the 24
      conv shapes of the train step at batch 32, in bf16 and float32
-     (max |got - ref| <= 1e-4 max |ref|), and against a float64 oracle;
+     (max |got - ref| <= 1e-4 max |ref|), two bf16 calls bit-identical; in
+     bf16 also at K = 100 and 150 on 38x38 and 19x19 maps, C = 40 on a 7x9
+     map, 1x1 and 3x3 maps at batch 1 and a view 2 bytes past an aligned
+     base; the f32 kernel against a float64 oracle;
   5b. flip kernel against its plain version at the chain's two shapes in
      float32, a ragged shape and in bf16: bit for bit;
   5c. the augmentation chain's apply functions on the card (flip kernel,
@@ -47,8 +50,9 @@ Phases (any failure exits non-zero):
   7. training: `fit` for 5 steps into a temporary run directory, on
      batches whose images each carry the two GT boxes of `bench.py`'s train
      rows; kernel launch counts reset just before and read just after
-     (matching 1 and filter gradient 24 per step); losses finite; the
-     checkpoint restores to the same step and weights;
+     (matching 1 and filter gradient 24 per step), and the bf16 wrapper's
+     padding copies; losses finite; the checkpoint restores to the same
+     step and weights;
   7b. training with device augmentation: `fit` for 5 steps on 44-block
      batches with the same GT; launch counts reset just before and read
      just after (matching 1, filter gradient 24, flip 2 per step); losses
@@ -60,11 +64,17 @@ Phases (any failure exits non-zero):
      its plain version on the same activations and output gradients;
   9. CUDA-event timings (median and range of 5 windows): forward + decode at
      batch 32 bf16 and its parts, the NMS kernel; the train step at batch 32
-     bf16 with both kernels and with both off (cuDNN filter gradient, plain
-     matching), interleaved; the matching kernel, its plain version and
-     bound on the train batch's IoUs, and on phase 4's as a worst case; the
-     filter-gradient kernel, its plain version, cuDNN's filter gradient and
-     the bound per shape, and their sums per step; (9c) the augment alone at
+     bf16 with both kernels, with cuDNN's filter gradient (matching kernel
+     on) and with both off (plain matching), interleaved, and a profiler
+     window of the first two; the matching
+     kernel, its plain version and bound on the train batch's IoUs, and on
+     phase 4's as a worst case; the filter-gradient kernel and cuDNN's
+     filter gradient per shape queued behind a device sleep (warm in the
+     L2: both are bound by operations), the padding copies' share, the
+     plain version, the bound, TFLOP/s and share of the bound, and their
+     sums per step; one conv's forward and backward through the switch on
+     and off, on the device and the host, and the host time to enqueue dW
+     alone in each; (9c) the augment alone at
      batch 32, its host time and kernel launches; the flip kernel per launch
      at both shapes (queued behind a device sleep, so the host's launch rate
      does not bound it; cycling through inputs and outputs 4x the L2, so
@@ -113,6 +123,13 @@ WGRAD_SHAPES = (
     (10, 256, 256, 6), (5, 512, 512, 3),
     (38, 384, 100, 1), (19, 512, 150, 1), (10, 1024, 150, 1), (5, 1024, 150, 1),
     (3, 256, 100, 1), (1, 256, 100, 1),
+)
+# bf16 cases that the step does not reach, (B, H, W, C, K): dy rows of 200
+# and 300 bytes, which TMA cannot describe (the wrapper pads K to 104, 152),
+# H != W with C = 40, and maps smaller than a stage's box.
+WGRAD_RAGGED = (
+    (32, 38, 38, 128, 100), (32, 38, 38, 128, 150), (32, 19, 19, 256, 100), (32, 19, 19, 256, 150),
+    (3, 7, 9, 40, 24), (1, 1, 1, 256, 100), (1, 3, 3, 256, 100),
 )
 
 
@@ -245,8 +262,11 @@ def timed(fn, iters, warmup_s=0.5):
 
 def queued_ms(fn, x, iters=100, windows=5, cold=True):
     """Device ms per call of `fn` on a short kernel's input `x`.  Each window
-    of `iters` calls is queued behind a ~20 ms device sleep, so the events
-    time the calls back to back on the device and not the host's launch rate.
+    of `iters` calls is queued behind a device sleep of 2e7 cycles (~10 ms
+    at the H100's clocks), so the events
+    time the calls back to back on the device and not the host's launch rate;
+    a window whose calls took the host longer than the sleep to enqueue is
+    marked "host-bound" in the range, since it timed the host.
     With `cold`, the calls cycle through copies of `x` that together hold 4x
     the L2, and each window keeps its outputs alive, so every call reads its
     input from and writes its output to main memory; without, every call
@@ -254,24 +274,30 @@ def queued_ms(fn, x, iters=100, windows=5, cold=True):
     both warm in the L2."""
     n_copies = -(-4 * H100_L2_BYTES // (x.numel() * x.element_size())) if cold else 1
     inputs = [x.clone() for _ in range(n_copies)]
-    times = []
+    times, host_bound = [], False
     for w in range(windows + 1):  # the first window warms the allocator's cache
         torch.cuda.synchronize()
         start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        sleep = torch.cuda.Event(enable_timing=True)
+        sleep.record()
         torch.cuda._sleep(20_000_000)
         start.record()
+        t0 = time.perf_counter()
         outs = []
         for i in range(iters):
             if cold:
                 outs.append(fn(inputs[i % n_copies]))
             else:
                 fn(x)
+        host_ms = (time.perf_counter() - t0) * 1e3
         end.record()
         end.synchronize()
         del outs
         if w:
             times.append(start.elapsed_time(end) / iters)
-    return float(np.median(times)), f"[{min(times):.5f}-{max(times):.5f}]"
+            host_bound |= host_ms > sleep.elapsed_time(start)
+    return float(np.median(times)), (f"[{min(times):.5f}-{max(times):.5f}]"
+                                     + (" host-bound" if host_bound else ""))
 
 
 def build_kernels() -> None:
@@ -349,20 +375,38 @@ def check_wgrad(dev) -> float:
 
     gen = torch.Generator().manual_seed(5)
     worst = 0.0
+
+    def held(x, dy, what):
+        nonlocal worst
+        got = conv_grad.conv3x3_filter_grad(x, dy)
+        torch.cuda.synchronize()
+        ref = conv_grad.conv3x3_filter_grad_reference(x, dy)
+        err = float((got - ref).abs().max())
+        scale = float(ref.abs().max())
+        worst = max(worst, err)
+        check(err <= WGRAD_TOL * scale, f"dW {what}: max |diff| {err:.3g} <= {WGRAD_TOL:g} * {scale:.4g}")
+        return got
+
     for h, c, k, count in WGRAD_SHAPES:
         x32 = torch.randn(32, h, h, c, generator=gen).to(dev)
         dy32 = torch.randn(32, h, h, k, generator=gen).to(dev)
         for dtype in (torch.bfloat16, torch.float32):
             x, dy = x32.to(dtype), dy32.to(dtype)
-            got = conv_grad.conv3x3_filter_grad(x, dy)
-            torch.cuda.synchronize()
-            ref = conv_grad.conv3x3_filter_grad_reference(x, dy)
-            err = float((got - ref).abs().max())
-            scale = float(ref.abs().max())
-            worst = max(worst, err)
-            check(err <= WGRAD_TOL * scale,
-                  f"dW {str(dtype)[6:]:8s} B=32 {h}x{h} {c}->{k} (x{count}): max |diff| {err:.3g} "
-                  f"<= {WGRAD_TOL:g} * {scale:.4g}")
+            got = held(x, dy, f"{str(dtype)[6:]:8s} B=32 {h}x{h} {c}->{k} (x{count})")
+            if dtype == torch.bfloat16:
+                again = conv_grad.conv3x3_filter_grad(x, dy)
+                check(torch.equal(again.view(torch.int32), got.view(torch.int32)),
+                      f"dW bfloat16 B=32 {h}x{h} {c}->{k}: a second call gives the same bits")
+    for b, h, w, c, k in WGRAD_RAGGED:
+        x = torch.randn(b, h, w, c, generator=gen).to(dev, torch.bfloat16)
+        dy = torch.randn(b, h, w, k, generator=gen).to(dev, torch.bfloat16)
+        held(x, dy, f"bfloat16 B={b} {h}x{w} {c}->{k}")
+    x = torch.randn(2 * 38 * 38 * 128 + 1, generator=gen).to(dev, torch.bfloat16)[1:].view(2, 38, 38, 128)
+    dy = torch.randn(2, 38, 38, 128, generator=gen).to(dev, torch.bfloat16)
+    before = conv_grad.PAD_COPIES
+    held(x, dy, f"bfloat16 B=2 38x38 128->128, x 2 bytes past an aligned base "
+                f"(data_ptr % 16 = {x.data_ptr() % 16})")
+    check(conv_grad.PAD_COPIES == before + 1, "the misaligned x was copied once")
     x = torch.randn(3, 7, 9, 40, generator=gen, dtype=torch.float64)
     dy = torch.randn(3, 7, 9, 24, generator=gen, dtype=torch.float64)
     xp = torch.nn.functional.pad(x, (0, 0, 1, 1, 1, 1))
@@ -619,6 +663,7 @@ def encoder_sims(encoder, batch):
 def run_training(dev, card, stress_sims):
     """Phases 7 and 8 (checks) and the training half of phase 9 (timings)."""
     from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
+    from jpeg_detection_resnet_ssd_torch.models import layers
     from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
     from jpeg_detection_resnet_ssd_torch.ops import bipartite_match as bm
     from jpeg_detection_resnet_ssd_torch.ops import conv_grad
@@ -635,18 +680,18 @@ def run_training(dev, card, stress_sims):
     encoder = TargetEncoder(AnchorSpec(), sizes, bipartite_impl="auto")
     with tempfile.TemporaryDirectory() as run_dir:
         t0 = time.perf_counter()
-        bm.LAUNCHES = conv_grad.LAUNCHES = conv_grad.LAYOUT_COPIES = 0
+        bm.LAUNCHES = conv_grad.LAUNCHES = conv_grad.LAYOUT_COPIES = conv_grad.PAD_COPIES = 0
         trainer, history = fit(cfg, batches, run_dir=run_dir, target_encoder=encoder,
                                log_every=1, save_every=5)
         torch.cuda.synchronize()
         launches = {"match": bm.LAUNCHES, "wgrad": conv_grad.LAUNCHES}
-        copies = conv_grad.LAYOUT_COPIES
+        copies, pads = conv_grad.LAYOUT_COPIES, conv_grad.PAD_COPIES
         print(f"    fit: {time.perf_counter() - t0:.2f} s (first step builds nothing: kernels "
               f"were built in phase 2); losses "
               + ", ".join(f"{r['total_loss']:.4f}" for r in history))
         print(f"    kernel launches on the training path: matching {launches['match']}, "
               f"filter gradient {launches['wgrad']}; layout copies before the filter-gradient "
-              f"kernel: {copies}")
+              f"kernel: {copies}; padding copies for TMA: {pads} ({pads / 5:g} per step)")
         check(len(history) == 5 and all(np.isfinite(r["total_loss"]) for r in history),
               "5 steps, every loss finite")
         check(launches["match"] == 5, "the matching kernel ran once per step")
@@ -739,17 +784,25 @@ def run_training(dev, card, stress_sims):
     print(f"[9b] training timings (CUDA events; median of 5 windows [min-max]) on {card}")
     batch = batches[0]
     cfg_off = ExperimentConfig(compute_dtype="bfloat16", pallas_wgrad=False, batch_size=32)
-    enc_off = TargetEncoder(AnchorSpec(), sizes, bipartite_impl="reference")
-    off, _, _ = build_trainer(cfg_off, target_encoder=enc_off)
-    step_ms = {"on": [], "off": []}
-    for arm in ("on", "off", "off", "on"):
-        fn = (lambda: trainer.train_step(batch)) if arm == "on" else (lambda: off.train_step(batch))
-        step_ms[arm].append(timed(fn, 2, warmup_s=1.0))
-    for arm, label in (("on", "both kernels"), ("off", "both off: cuDNN dW, plain matching")):
+    cudnn, _, _ = build_trainer(cfg_off, target_encoder=encoder)
+    off, _, _ = build_trainer(cfg_off, target_encoder=TargetEncoder(AnchorSpec(), sizes,
+                                                                    bipartite_impl="reference"))
+    arms = {"on": trainer, "cudnn": cudnn, "off": off}
+    step_ms = {arm: [] for arm in arms}
+    for pair in range(4):  # the order turns round every pair
+        for arm in (("on", "cudnn", "off") if pair % 2 == 0 else ("off", "cudnn", "on")):
+            step_ms[arm].append(timed(lambda: arms[arm].train_step(batch), 2, warmup_s=1.0))
+    for arm, label in (("on", "both kernels"), ("cudnn", "cuDNN dW, matching kernel"),
+                       ("off", "both off: cuDNN dW, plain matching")):
         ms = [m for m, _ in step_ms[arm]]
         print(f"    train step, batch 32 bf16, {label}: " + ", ".join(
             f"{m:.3f} ms {spread}" for m, spread in step_ms[arm])
             + f" -> {32e3 / np.mean(ms):.1f} images/s  [{card}]")
+    diffs = [a - c for (a, _), (c, _) in zip(step_ms["on"], step_ms["cudnn"])]
+    print("    step with the B4 kernel minus step with cuDNN's dW, per round: "
+          + ", ".join(f"{d:+.3f}" for d in diffs) + f" ms; median {float(np.median(diffs)):+.3f} ms "
+          + ("(every round agrees in sign)" if min(diffs) > 0 or max(diffs) < 0
+             else "(not resolved: the rounds differ in sign)"))
     host_ms = []
     for _ in range(5):
         torch.cuda.synchronize()
@@ -759,7 +812,10 @@ def run_training(dev, card, stress_sims):
     torch.cuda.synchronize()
     print(f"    train step (kernels) host time to return: {float(np.median(host_ms)):.3f} ms "
           f"[{min(host_ms):.3f}-{max(host_ms):.3f}] (median of 5, host clock)")
-    del off
+    profile_steps(lambda: cudnn.train_step(batch), card,
+                  float(np.median([m for m, _ in step_ms["cudnn"]])),
+                  label="train steps with cuDNN's dW and the matching kernel")
+    del off, cudnn, arms
     profile_steps(lambda: trainer.train_step(batch), card,
                   float(np.median([m for m, _ in step_ms["on"]])))
 
@@ -775,7 +831,15 @@ def run_training(dev, card, stress_sims):
     print(f"    matching, worst case: phase 4's IoUs (1-10 GT per image, one image of 64, duplicate "
           f"boxes): kernel {s_ms:.5f} ms {s_spread}; plain {sp_ms:.4f} ms {sp_spread}  [{card}]")
 
-    sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    # B4 per shape, queued behind a device sleep so that the host's launch
+    # rate does not bound it, on the same x and dy every call: warm in the
+    # L2 as far as they fit (the largest conv's x and dy are 47 MB, the L2
+    # 50 MB), which is right for a kernel bound by operations.  The
+    # wrapper's time includes its padding copy (K = 100, 150), timed alone
+    # beside it.
+    print("    filter gradient per conv, bf16, batch 32, queued behind a device sleep, inputs warm "
+          "in the L2 (bound by operations)")
+    sums = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0, "pad_ms": 0.0}
     bound_by = {"operations": 0, "bytes": 0}
     gen = torch.Generator().manual_seed(9)
     for h, c, k, count in WGRAD_SHAPES:
@@ -783,21 +847,72 @@ def run_training(dev, card, stress_sims):
         dy = torch.randn(32, h, h, k, generator=gen).to(dev, torch.bfloat16)
         w = torch.zeros(k, c, 3, 3, device=dev, dtype=torch.bfloat16)
         xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
-        kern, kern_s = timed(lambda: conv_grad.conv3x3_filter_grad(x, dy), 10, warmup_s=0.1)
+        plan = conv_grad.tiling_plan(32, h, h, c, k)
+        kern, kern_s = queued_ms(lambda _: conv_grad.conv3x3_filter_grad(x, dy), x, iters=50, cold=False)
+        lib, lib_s = queued_ms(lambda _: torch.ops.aten.convolution_backward(
+            dyn, xn, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, False]), x,
+            iters=50, cold=False)
+        pad = 0.0
+        if plan.k_pad != k:
+            pad, _ = queued_ms(lambda _: conv_grad._tma_operand(dy, plan.k_pad), x, iters=50, cold=False)
         plain, _ = timed(lambda: conv_grad.conv3x3_filter_grad_reference(x, dy), 3, warmup_s=0.1)
-        lib, lib_s = timed(lambda: torch.ops.aten.convolution_backward(
-            dyn, xn, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, False]), 10,
-            warmup_s=0.1)
         bound, by = wgrad_bound(32 * h * h, c, k, torch.bfloat16)
-        for key, v in (("ms", kern), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bound)):
+        for key, v in (("ms", kern), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bound),
+                       ("pad_ms", pad)):
             sums[key] += count * v
         bound_by[by] += count
-        print(f"    dW bf16 B=32 {h:2d}x{h:<2d} {c:4d}->{k:<4d} x{count}: kernel {kern:.4f} ms {kern_s}; "
-              f"plain {plain:.4f}; cuDNN {lib:.4f} {lib_s}; bound {bound:.5f} ({by}); "
-              f"kernel/cuDNN {kern / lib:.2f}")
-    print(f"    dW per train step (24 convs): kernel {sums['ms']:.4f} ms, plain {sums['plain_ms']:.4f} ms, "
-          f"cuDNN {sums['library_ms']:.4f} ms, bound {sums['bound_ms']:.4f} ms "
+        tflops = 2 * 9 * 32 * h * h * c * k / (kern * 1e-3) / 1e12
+        print(f"    dW bf16 B=32 {h:2d}x{h:<2d} {c:4d}->{k:<4d} x{count}: kernel {kern:.5f} ms {kern_s} "
+              + (f"(padding dy to {plan.k_pad} channels {pad:.5f}) " if pad else "")
+              + f"= {tflops:.1f} TFLOP/s, {100 * bound / kern:.1f}% of the bound {bound:.5f} ({by}); "
+              f"cuDNN {lib:.5f} {lib_s}; kernel/cuDNN {kern / lib:.2f}; plain {plain:.4f}; tile "
+              f"{conv_grad.BLOCK_C}x{plan.n_tile}, box {plan.w_box}x{plan.rows}x{plan.images}, "
+              f"{plan.splits} splits, ring {plan.ring}")
+    print(f"    dW per train step (24 convs): kernel {sums['ms']:.4f} ms (of which padding copies "
+          f"{sums['pad_ms']:.4f}), {100 * sums['bound_ms'] / sums['ms']:.1f}% of the bound "
+          f"{sums['bound_ms']:.4f} ms; cuDNN {sums['library_ms']:.4f} ms; plain {sums['plain_ms']:.4f} ms "
           f"({bound_by['operations']} convs bound by operations, {bound_by['bytes']} by bytes)  [{card}]")
+    del sums["pad_ms"]
+
+    # Where the step's difference between the arms comes from: one conv's
+    # forward and backward through `layers.conv3x3_same` with the switch on
+    # (the autograd Function: cuDNN forward, a separate dx call, the kernel,
+    # dW cast to bf16, the bias added outside, as in the JAX package) and
+    # off (one cuDNN conv with its bias), on the device and on the host.
+    x = torch.randn(32, 38, 38, 128, generator=gen).to(dev, torch.bfloat16).requires_grad_(True)
+    w = (0.05 * torch.randn(128, 128, 3, 3, generator=gen)).to(dev, torch.bfloat16).requires_grad_(True)
+    bias = torch.zeros(128, device=dev, dtype=torch.bfloat16, requires_grad=True)
+    g = torch.randn(32, 38, 38, 128, generator=gen).to(dev, torch.bfloat16)
+
+    def conv_fwd_bwd(on):
+        with layers.pallas_wgrad(on):
+            torch.autograd.grad(layers.conv3x3_same(x, w, bias), (x, w, bias), g)
+
+    for on, label in ((True, "switch on (B4)"), (False, "switch off (cuDNN)")):
+        dev_ms, dev_s = queued_ms(lambda _: conv_fwd_bwd(on), x, iters=8, cold=False)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(20):
+            conv_fwd_bwd(on)
+        host_ms = (time.perf_counter() - t0) / 20 * 1e3
+        torch.cuda.synchronize()
+        print(f"    one 38x38 128->128 conv, forward + backward, {label}: device {dev_ms:.4f} ms {dev_s} "
+              f"(queued behind a device sleep), host {host_ms:.4f} ms to enqueue (host clock)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        conv_grad.conv3x3_filter_grad(x.detach(), g)
+    wrapper_ms = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(50):
+        torch.ops.aten.convolution_backward(g.permute(0, 3, 1, 2), x.detach().permute(0, 3, 1, 2), w.detach(),
+                                            None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1,
+                                            [False, True, False])
+    cudnn_ms = (time.perf_counter() - t0) / 50 * 1e3
+    torch.cuda.synchronize()
+    print(f"    host time to enqueue dW alone: B4's wrapper {wrapper_ms:.4f} ms, cuDNN's "
+          f"convolution_backward {cudnn_ms:.4f} ms (host clock, mean of 50)")
     return {
         "match": {"launches": launches["match"], "ms": m_ms, "plain_ms": mp_ms,
                   "bound_ms": mb_ms, "bound_by": mb_by},

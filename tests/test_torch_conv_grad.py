@@ -3,9 +3,13 @@
 The port's plain dW (nine tap matmuls, float32 accumulation) against the
 JAX package's Pallas kernel in interpret mode and its float64 oracle, at
 the JAX tests' shapes and tolerances (`tests/test_pallas_conv_grad.py`);
-the autograd Function against plain `F.conv2d` autograd; and the switch
-that routes the model's eligible convolutions through it.
+the autograd Function against plain `F.conv2d` autograd; the switch that
+routes the model's eligible convolutions through it; and the bf16 kernel's
+tiling plan, whose tiled sum is emulated here (the kernel itself runs only
+on the card, `test_torch_cuda.py`).
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -133,3 +137,92 @@ def test_switch_routes_24_convs_of_ssd_custom(monkeypatch):
            ((5, 5, 1024), 150), ((3, 3, 256), 100), ((1, 1, 256), 100)]
     )
     assert sorted(calls) == sorted(want)
+
+
+# The bf16 kernel's tiling plan (`conv_grad.tiling_plan`), checked on the CPU.
+# The 12 filter-gradient shapes of one `ssd_custom` train step at batch 32,
+# (H = W, C, K), and the ragged cases the card tests add, (B, H, W, C, K).
+STEP_SHAPES = [(38, 256, 256), (38, 128, 128), (19, 256, 256), (19, 128, 128), (10, 256, 256),
+               (5, 512, 512), (38, 384, 100), (19, 512, 150), (10, 1024, 150), (5, 1024, 150),
+               (3, 256, 100), (1, 256, 100)]
+PLAN_CASES = ([(32, h, h, c, k) for h, c, k in STEP_SHAPES]
+              + [(1, 7, 9, 40, 150), (3, 7, 9, 40, 24), (1, 1, 1, 256, 100), (1, 3, 3, 256, 100)])
+
+
+def _split_stages(plan):
+    """The stages of each chunk of P, in the kernel's order."""
+    return [range(z * plan.per_split, min(plan.stages, (z + 1) * plan.per_split))
+            for z in range(plan.splits)]
+
+
+def _emulate_plan(plan, x, dy):
+    """The plan's tiled sum: for each chunk, each stage's boxes as TMA fills
+    them (zero outside x and dy) multiplied tap by tap, the chunks added in
+    order, in float32."""
+    b, h, w, c = x.shape
+    k = dy.shape[-1]
+    b_pad, h_pad = plan.stages // plan.h_groups * plan.images, plan.h_groups * plan.rows
+    # Every coordinate a box reaches (x's from -1), zero outside the tensors.
+    xz = x.new_zeros(b_pad, h_pad + 2, plan.w_box + 2, plan.c_pad)
+    xz[:b, 1:h + 1, 1:w + 1, :c] = x
+    dyz = dy.new_zeros(b_pad, h_pad, plan.w_box, plan.k_pad)
+    dyz[:b, :h, :w, :k] = dy
+    total = None
+    for stages in _split_stages(plan):
+        acc = x.new_zeros(9, plan.c_pad, plan.k_pad)
+        for u in stages:
+            b0, y0 = plan.stage_origin(u)
+            d = dyz[b0:b0 + plan.images, y0:y0 + plan.rows].reshape(plan.stage_rows, -1)
+            for tap in range(9):
+                kh, kw = divmod(tap, 3)
+                a = xz[b0:b0 + plan.images, y0 + kh:y0 + kh + plan.rows, kw:kw + plan.w_box]
+                acc[tap] += a.reshape(plan.stage_rows, -1).T @ d
+        total = acc if total is None else total + acc
+    return total[:, :c, :k].reshape(3, 3, c, k)
+
+
+@pytest.mark.parametrize("b,h,w,c,k", PLAN_CASES)
+def test_plan_covers_every_row_of_p_once(b, h, w, c, k):
+    plan = conv_grad.tiling_plan(b, h, w, c, k)
+    assert plan.stage_rows % 16 == 0 and plan.stage_rows <= conv_grad.MAX_STAGE_ROWS
+    assert plan.w_box >= w and plan.n_tile in conv_grad.N_TILES
+    assert plan.c_pad % 8 == 0 and plan.k_pad % 8 == 0 and plan.c_pad >= c and plan.k_pad >= k
+    assert (plan.splits - 1) * plan.per_split < plan.stages <= plan.splits * plan.per_split
+    stage_bytes = (2 + -(-plan.n_tile // conv_grad.BOX_C)) * plan.stage_rows * 128
+    assert 2 <= plan.ring <= conv_grad.MAX_RING and plan.ring * stage_bytes <= conv_grad.SMEM_BYTES
+    seen = torch.zeros(b, h, w, dtype=torch.int32)
+    for stages in _split_stages(plan):
+        for u in stages:
+            b0, y0 = plan.stage_origin(u)
+            seen[b0:b0 + plan.images, y0:y0 + plan.rows] += 1  # a box spans all W columns
+    assert bool((seen == 1).all())
+
+
+@pytest.mark.parametrize("b,h,w,c,k", PLAN_CASES)
+def test_plan_tiled_sum_matches_references(b, h, w, c, k):
+    """The plan of the full-width problem, emulated at 8 -> 6 channels (dy
+    padded to 8, as the wrapper pads K = 100 and 150)."""
+    plan = dataclasses.replace(conv_grad.tiling_plan(b, h, w, c, k), c_pad=8, k_pad=8)
+    rng = np.random.default_rng(h * 1000 + k)
+    x = rng.normal(0, 1, (b, h, w, 8)).astype(np.float32)
+    dy = rng.normal(0, 1, (b, h, w, 6)).astype(np.float32)
+    got = _emulate_plan(plan, torch.from_numpy(x), torch.from_numpy(dy)).numpy()
+    for ref in (conv_grad.conv3x3_filter_grad_reference(torch.from_numpy(x), torch.from_numpy(dy)).numpy(),
+                reference_filter_grad(x, dy)):
+        np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-5 * float(np.abs(ref).max()))
+
+
+def test_tma_operand_pads_channels_and_realigns_with_one_counted_copy():
+    t = torch.arange(2 * 3 * 3 * 100, dtype=torch.float32).bfloat16().reshape(2, 3, 3, 100)
+    before = conv_grad.PAD_COPIES
+    padded = conv_grad._tma_operand(t, 104)
+    assert padded.shape == (2, 3, 3, 104) and torch.equal(padded[..., :100], t)
+    assert not bool(padded[..., 100:].any())
+    assert conv_grad.PAD_COPIES == before + 1
+    assert conv_grad._tma_operand(padded, 104) is padded and conv_grad.PAD_COPIES == before + 1
+    flat = torch.zeros(1 + 2 * 3 * 3 * 104, dtype=torch.bfloat16)
+    view = flat[1:].view(2, 3, 3, 104)  # 2 bytes past an aligned base
+    assert view.data_ptr() % 16 != 0
+    copy = conv_grad._tma_operand(view, 104)
+    assert copy.data_ptr() % 16 == 0 and torch.equal(copy, view)
+    assert conv_grad.PAD_COPIES == before + 2

@@ -98,11 +98,17 @@ def test_match_kernel_equals_reference(cuda, make):
     assert torch.equal(got, bipartite_match.bipartite_match_reference(sims))
 
 
-@pytest.mark.parametrize("shape", [(2, 38, 38, 128, 128), (4, 5, 5, 512, 512),
-                                   (3, 3, 3, 256, 100), (2, 1, 1, 256, 100), (1, 7, 9, 40, 150)])
+@pytest.mark.parametrize("shape", [
+    (2, 38, 38, 128, 128), (4, 5, 5, 512, 512), (3, 3, 3, 256, 100), (2, 1, 1, 256, 100),
+    (1, 7, 9, 40, 150),
+    # dy rows of 200 and 300 bytes (K = 100, 150: padded to 104, 152 for TMA)
+    (4, 38, 38, 128, 100), (4, 38, 38, 128, 150), (4, 19, 19, 256, 100), (4, 19, 19, 256, 150),
+    (3, 7, 9, 40, 24), (1, 1, 1, 256, 100), (1, 3, 3, 256, 100),  # H != W, C = 40; tiny maps
+])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_filter_grad_kernel_matches_reference(cuda, shape, dtype):
-    """Both accumulate in float32; only the order of the sums differs."""
+    """Both accumulate in float32; only the order of the sums differs.  Two
+    calls give the same bits (the split sum is added in a fixed order)."""
     b, h, w, c, k = shape
     gen = torch.Generator(device="cpu").manual_seed(0)
     x = torch.randn(b, h, w, c, generator=gen).to(cuda, dtype)
@@ -114,6 +120,25 @@ def test_filter_grad_kernel_matches_reference(cuda, shape, dtype):
     assert conv_grad.LAUNCHES == before + 1
     ref = conv_grad.conv3x3_filter_grad_reference(x, dy)
     assert got.shape == (3, 3, c, k) and got.dtype == torch.float32
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(conv_grad.conv3x3_filter_grad(x, dy).view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("which", ["x", "dy"])
+def test_filter_grad_kernel_takes_a_misaligned_view(cuda, which):
+    """A view 2 bytes past an aligned base: the bf16 path copies it once
+    (TMA needs a 16-byte-aligned base) and gives the plain version's dW."""
+    gen = torch.Generator(device="cpu").manual_seed(1)
+    shapes = {"x": (2, 19, 19, 128), "dy": (2, 19, 19, 128)}
+    t = {n: torch.randn(s, generator=gen).to(cuda, torch.bfloat16) for n, s in shapes.items()}
+    n = t[which].numel()
+    t[which] = torch.cat([t[which].new_zeros(1), t[which].reshape(-1)])[1:].view(shapes[which])
+    assert t[which].data_ptr() % 16 != 0
+    before = conv_grad.PAD_COPIES
+    got = conv_grad.conv3x3_filter_grad(t["x"], t["dy"])
+    torch.cuda.synchronize()
+    assert conv_grad.PAD_COPIES == before + 1 and t[which].numel() == n
+    ref = conv_grad.conv3x3_filter_grad_reference(t["x"], t["dy"])
     assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
 
 
