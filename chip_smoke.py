@@ -22,12 +22,13 @@ Phases (any failure exits non-zero):
   2. build the four kernels from the sources in the checkout, one nvcc each,
      all started together; print ptxas' registers, shared memory, spills;
   3. NMS kernel against its plain version at the serving shape (N=640,
-     K=400) and a ragged one, with pairs at IoU exactly the threshold:
-     masks exactly equal;
+     K=400), a ragged one and K=4096, with pairs at IoU exactly the
+     threshold: masks exactly equal;
   4. matching kernel against its plain version on the IoUs of seeded GT
      with the 8732 anchors at batch 32 (1-10 valid rows per image, one image
      with 64, one with none, duplicate boxes) and on tie-heavy (5, 64, 300)
-     similarities: indices exactly equal;
+     similarities, without a row mask and with one (the GT mask; seeded
+     holes for the ties): indices exactly equal;
   5. filter-gradient kernel against its plain version at each of the 24
      conv shapes of the train step at batch 32, in bf16 and float32
      (max |got - ref| <= 1e-4 max |ref|), two bf16 calls bit-identical; in
@@ -63,12 +64,18 @@ Phases (any failure exits non-zero):
      parameters; and each of the step's 24 kernel filter gradients against
      its plain version on the same activations and output gradients;
   9. CUDA-event timings (median and range of 5 windows): forward + decode at
-     batch 32 bf16 and its parts, the NMS kernel; the train step at batch 32
+     batch 32 bf16 and its parts; the NMS kernel at N=640, K=400 queued
+     behind a device sleep, at the host's rate and in the profiler (its
+     two launches), its bound, the full bitmask's operations and bytes and
+     the pair tests its tiles issue; the
+     train step at batch 32
      bf16 with both kernels, with cuDNN's filter gradient (matching kernel
      on) and with both off (plain matching), interleaved, and a profiler
-     window of the first two; the matching
-     kernel, its plain version and bound on the train batch's IoUs, and on
-     phase 4's as a worst case; the filter-gradient kernel and cuDNN's
+     window of the first two; the matching kernel queued behind a device
+     sleep (from main memory and warm in the L2), its plain version, its
+     bound (live rows) and the full matrix's bound, on the train batch's
+     IoUs with the GT row mask and without one, and on phase 4's as a worst
+     case, with and without the mask; the filter-gradient kernel and cuDNN's
      filter gradient per shape queued behind a device sleep (warm in the
      L2: both are bound by operations), the padding copies' share, the
      plain version, the bound, TFLOP/s and share of the bound, and their
@@ -208,11 +215,41 @@ def nms_bound(keep: torch.Tensor) -> tuple[float, str, int]:
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations"), pairs
 
 
-def match_bound(sims: torch.Tensor) -> tuple[float, str]:
-    """Read the similarities once, write the indices; one compare each."""
+def nms_bitmask_work(n: int, k: int) -> tuple[int, int]:
+    """What a full pair bitmask would spend: the operations of all K(K-1)/2
+    pairs of each problem, and the bytes of an (N, K, ceil(K/64)) word mask
+    written once and read once."""
+    return NMS_OPS_PER_PAIR * n * k * (k - 1) // 2, 2 * n * k * (-(-k // 64)) * 8
+
+
+def nms_tile_pairs(scores: torch.Tensor) -> int:
+    """Pair tests the bitmask kernel issues on these inputs, counted per lane:
+    every 64 x 64 tile on or above the diagonal whose row and column blocks
+    hold a score > 0, in halves of 32 columns, with one row a lane on the
+    diagonal's first half and in the last row block, two elsewhere."""
+    n, k = scores.shape
+    words = -(-k // 64)
+    padded = torch.zeros(n, words * 64, dtype=torch.bool, device=scores.device)
+    padded[:, :k] = scores > 0
+    live = padded.reshape(n, words, 64).any(-1).cpu()
+    total = 0
+    for rb in range(words):
+        two_rows = rb * 64 + 32 < k
+        for cb in range(rb, words):
+            cost = 32 * 32 * (2 if two_rows and cb != rb else 1)
+            if k - cb * 64 > 32:
+                cost += 32 * 32 * (2 if two_rows else 1)
+            total += cost * int((live[:, rb] & live[:, cb]).sum())
+    return total
+
+
+def match_bound(sims: torch.Tensor, row_mask: torch.Tensor | None = None) -> tuple[float, str]:
+    """Read the live rows (every row without a mask) once, and the mask;
+    write the indices; one compare an element."""
     b, m, n = sims.shape
-    t_bytes = (b * m * n * 4 + b * m * 4) / H100_BYTES_PER_S
-    t_ops = b * m * n / H100_F32_FLOPS
+    live = b * m if row_mask is None else int(row_mask.sum())
+    t_bytes = (live * n * 4 + b * m * 4 + (0 if row_mask is None else b * m)) / H100_BYTES_PER_S
+    t_ops = live * n / H100_F32_FLOPS
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -320,7 +357,7 @@ def check_nms(dev) -> float:
     from jpeg_detection_resnet_ssd_torch.ops import batched_nms
 
     max_err = 0.0
-    for n, k in ((640, 400), (7, 37)):
+    for n, k in ((640, 400), (7, 37), (2, 4096)):
         boxes, scores = nms_problems(np.random.default_rng(n), n, k)
         b, s = torch.from_numpy(boxes).to(dev), torch.from_numpy(scores).to(dev)
         for delta in (0.0, 1.0, -1.0):
@@ -356,18 +393,23 @@ def check_match(dev, anchors) -> tuple[float, torch.Tensor]:
     sims = iou_sims(torch.from_numpy(gt).to(dev), torch.from_numpy(mask).to(dev), anchors)
     ties = (rng.integers(-4, 16, (5, 64, 300)).astype(np.float32) / 16)
     ties[:, -3:] = -1.0
+    holes = torch.from_numpy(rng.random((5, 64)) < 0.6).to(dev)
+    gt_mask = torch.from_numpy(mask).to(dev)
     max_err = 0
-    for name, s in (("IoU sims (32, 64, 8732)", sims),
-                    ("tie-heavy sims (5, 64, 300)", torch.from_numpy(ties).to(dev))):
-        got = bm.bipartite_match(s, impl="kernel")
+    for name, s, row_mask in (("IoU sims (32, 64, 8732)", sims, None),
+                              ("IoU sims (32, 64, 8732), GT row mask", sims, gt_mask),
+                              ("tie-heavy sims (5, 64, 300)", torch.from_numpy(ties).to(dev), None),
+                              ("tie-heavy sims (5, 64, 300), row mask with holes",
+                               torch.from_numpy(ties).to(dev), holes)):
+        got = bm.bipartite_match(s, impl="kernel", row_mask=row_mask)
         torch.cuda.synchronize()
-        ref = bm.bipartite_match_reference(s)
+        ref = bm.bipartite_match_reference(s, row_mask)
         max_err = max(max_err, int((got - ref).abs().max()))
         check(torch.equal(got, ref), f"{name}: matched indices equal ({int((ref >= 0).sum())} pairs)")
-    got = bm.bipartite_match(sims, impl="kernel")
+    got = bm.bipartite_match(sims, impl="kernel", row_mask=gt_mask)
     check(bool(((got >= 0) == (sims.amax(-1) >= 0)).all()) and bool((got[17] < 0).all())
           and bool((got[5] >= 0).all()), "every valid row matched, none of the padding")
-    return float(max_err), sims
+    return float(max_err), sims, gt_mask
 
 
 def check_wgrad(dev) -> float:
@@ -603,15 +645,27 @@ def run_inference(dev, card):
     nb = top_boxes.reshape(32 * 20, -1, 4)
     ns = top_scores.reshape(32 * 20, -1)
     keep = batched_nms.batched_nms_mask(nb, ns)
-    kernel_ms, kernel_spread = timed(lambda: batched_nms.batched_nms_mask(nb, ns), 50)
+    kernel_ms, kernel_spread = queued_ms(lambda _: batched_nms.batched_nms_mask(nb, ns), nb, cold=False)
+    ev_ms, ev_spread = timed(lambda: batched_nms.batched_nms_mask(nb, ns), 50)
     plain_ms, plain_spread = timed(lambda: batched_nms.batched_nms_mask_reference(nb, ns), 1)
     bound_ms, bound_by, pairs = nms_bound(keep)
+    full_ops, mask_bytes = nms_bitmask_work(*ns.shape)
     alive = int((ns > 0).sum())
     print(f"    NMS at the inference path's shape N={nb.shape[0]} K={nb.shape[1]}: {alive} candidates "
           f"with score > 0, {int(keep.sum())} kept, {pairs} pair tests needed")
-    print(f"    NMS kernel: {kernel_ms:.5f} ms {kernel_spread}; plain PyTorch version: "
+    print(f"    NMS kernel (pair bitmask + scan, two launches a call), queued behind a device sleep, "
+          f"inputs warm in the L2: {kernel_ms:.5f} ms {kernel_spread}; at the host's launch rate "
+          f"(events over 50 calls): {ev_ms:.5f} ms {ev_spread}; plain PyTorch version: "
           f"{plain_ms:.4f} ms {plain_spread}; bound {bound_ms:.6f} ms ({bound_by}); library: "
           f"none (no single PyTorch call computes a greedy-NMS keep mask)  [{card}]")
+    lane_pairs = nms_tile_pairs(ns)
+    print(f"    NMS bitmask's work: {full_ops} operations for all K(K-1)/2 pairs "
+          f"({full_ops / (NMS_OPS_PER_PAIR * pairs):.3f}x the bound's {NMS_OPS_PER_PAIR * pairs}; "
+          f"{full_ops / H100_F32_FLOPS * 1e3:.6f} ms at the f32 peak), {lane_pairs} pair tests issued "
+          f"by the tiles ({lane_pairs / pairs:.3f}x the bound's pairs), mask {mask_bytes} bytes written "
+          f"and read ({mask_bytes / H100_BYTES_PER_S * 1e3:.6f} ms at the HBM rate)")
+    for name, ms in device_split(lambda: batched_nms.batched_nms_mask(nb, ns)):
+        print(f"      profiler: {ms:.5f} ms per call  {name[:80]}")
     return {"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
 
@@ -642,15 +696,32 @@ def profile_steps(step, card, step_ms, n=3, label="train steps with both kernels
         print(f"      {e.self_device_time_total / 1e3 / n:9.3f} ms  x{e.count // n:<5d} {e.key[:90]}")
 
 
+def device_split(fn, n=20):
+    """(kernel name, device ms per call) for each kernel `fn` launches:
+    torch.profiler over n calls, after one untraced call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    split = [(e.key, e.self_device_time_total / 1e3 / n) for e in prof.key_averages()
+             if e.device_type == torch.autograd.DeviceType.CUDA]
+    return split or [("no device time recorded (not measured)", float("nan"))]
+
+
 def encoder_sims(encoder, batch):
-    """The similarities `encoder` hands the matching kernel for `batch`."""
+    """The similarities and row mask `encoder` hands the matching kernel for
+    `batch`."""
     from jpeg_detection_resnet_ssd_torch.boxes import target_encoder
 
     match, seen = target_encoder.bipartite_match, []
 
-    def record(sims, impl):
-        seen.append(sims.clone())
-        return match(sims, impl=impl)
+    def record(sims, impl, row_mask=None):
+        seen.append((sims.clone(), row_mask.clone()))
+        return match(sims, impl=impl, row_mask=row_mask)
 
     target_encoder.bipartite_match = record
     try:
@@ -660,7 +731,7 @@ def encoder_sims(encoder, batch):
     return seen[0]
 
 
-def run_training(dev, card, stress_sims):
+def run_training(dev, card, stress_sims, stress_mask):
     """Phases 7 and 8 (checks) and the training half of phase 9 (timings)."""
     from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
     from jpeg_detection_resnet_ssd_torch.models import layers
@@ -819,17 +890,30 @@ def run_training(dev, card, stress_sims):
     profile_steps(lambda: trainer.train_step(batch), card,
                   float(np.median([m for m, _ in step_ms["on"]])))
 
-    sims = encoder_sims(encoder, batch)
-    m_ms, m_spread = timed(lambda: bm.bipartite_match(sims, impl="kernel"), 20, warmup_s=0.2)
-    mp_ms, mp_spread = timed(lambda: bm.bipartite_match_reference(sims), 2, warmup_s=0.2)
-    mb_ms, mb_by = match_bound(sims)
-    print(f"    matching at (32, 64, 8732) on the train batch's IoUs ({len(BENCH_GT)} GT per image): "
-          f"kernel {m_ms:.5f} ms {m_spread}; plain {mp_ms:.4f} ms {mp_spread}; bound {mb_ms:.6f} ms "
-          f"({mb_by}); library: none  [{card}]")
-    s_ms, s_spread = timed(lambda: bm.bipartite_match(stress_sims, impl="kernel"), 20, warmup_s=0.2)
-    sp_ms, sp_spread = timed(lambda: bm.bipartite_match_reference(stress_sims), 2, warmup_s=0.2)
-    print(f"    matching, worst case: phase 4's IoUs (1-10 GT per image, one image of 64, duplicate "
-          f"boxes): kernel {s_ms:.5f} ms {s_spread}; plain {sp_ms:.4f} ms {sp_spread}  [{card}]")
+    # Matching, queued behind a device sleep: from main memory (the calls
+    # cycle through copies of the similarities, 4x the L2) and warm in the
+    # L2; the bound reads the live rows once, and the full matrix's bound
+    # (every row read) is printed beside it.
+    sims, gt_mask = encoder_sims(encoder, batch)
+    print("    matching at (32, 64, 8732), queued behind a device sleep; plain version at the host's rate")
+    match_row = None
+    for label, s, row_mask in (
+            (f"train batch's IoUs ({len(BENCH_GT)} GT per image), GT row mask (the main path)", sims, gt_mask),
+            (f"train batch's IoUs ({len(BENCH_GT)} GT per image), no mask", sims, None),
+            ("phase 4's stress IoUs (1-10 GT per image, one image of 64, duplicate boxes), GT row mask",
+             stress_sims, stress_mask),
+            ("phase 4's stress IoUs, no mask", stress_sims, None)):
+        k_ms, k_spread = queued_ms(lambda t: bm.bipartite_match(t, impl="kernel", row_mask=row_mask), s)
+        w_ms, w_spread = queued_ms(lambda t: bm.bipartite_match(t, impl="kernel", row_mask=row_mask), s,
+                                   cold=False)
+        p_ms, p_spread = timed(lambda: bm.bipartite_match_reference(s, row_mask), 2, warmup_s=0.2)
+        b_ms, b_by = match_bound(s, row_mask)
+        full_ms, _ = match_bound(s)
+        print(f"    matching, {label}: kernel {k_ms:.5f} ms {k_spread} from main memory, {w_ms:.5f} ms "
+              f"{w_spread} warm in the L2; plain {p_ms:.4f} ms {p_spread}; bound {b_ms:.6f} ms ({b_by}; "
+              f"full-matrix bound {full_ms:.6f} ms); library: none  [{card}]")
+        if match_row is None:
+            match_row = {"ms": k_ms, "plain_ms": p_ms, "bound_ms": b_ms, "bound_by": b_by}
 
     # B4 per shape, queued behind a device sleep so that the host's launch
     # rate does not bound it, on the same x and dy every call: warm in the
@@ -914,8 +998,7 @@ def run_training(dev, card, stress_sims):
     print(f"    host time to enqueue dW alone: B4's wrapper {wrapper_ms:.4f} ms, cuDNN's "
           f"convolution_backward {cudnn_ms:.4f} ms (host clock, mean of 50)")
     return {
-        "match": {"launches": launches["match"], "ms": m_ms, "plain_ms": mp_ms,
-                  "bound_ms": mb_ms, "bound_by": mb_by},
+        "match": {"launches": launches["match"], **match_row},
         "wgrad": {"launches": launches["wgrad"], **sums,
                   "bound_by": max(bound_by, key=bound_by.get)},
         "wgrad_step_err": step_err,
@@ -1068,7 +1151,7 @@ def main() -> int:
     print("[4] matching kernel against its plain version")
     anchors = torch.from_numpy(build_anchors(
         AnchorSpec(), ssd_predictor_sizes("resnet_custom"), coords="centroids")).to(dev)
-    match_err, stress_sims = check_match(dev, anchors)
+    match_err, stress_sims, stress_mask = check_match(dev, anchors)
 
     print(f"[5] filter-gradient kernel against its plain version (tolerance {WGRAD_TOL:g} max |ref|)")
     wgrad_err = check_wgrad(dev)
@@ -1080,7 +1163,7 @@ def main() -> int:
     check_chain(dev)
 
     nms = run_inference(dev, card)
-    train = run_training(dev, card, stress_sims)
+    train = run_training(dev, card, stress_sims, stress_mask)
     flip = run_augmented_training(dev, card, train["trainer"], train["batch"])
 
     print(f"[10] done in {time.perf_counter() - t_start:.1f} s")

@@ -8,7 +8,8 @@ tensor [one-hot classes, 4 offsets, 4 anchor centroids, 4 variances]:
 
   1. every anchor starts as background;
   2. greedy bipartite matching gives every valid GT box one anchor
-     (`ops.bipartite_match`, the CUDA kernel on the card);
+     (`ops.bipartite_match` over the valid rows, the CUDA kernel on the
+     card);
   3. 'multi' matching gives every other anchor with IoU >=
      pos_iou_threshold its best GT;
   4. the other anchors with IoU >= neg_iou_limit to some GT are neutral
@@ -86,8 +87,9 @@ def encode_targets(
     col_best_sim = sims.amax(dim=1)
 
     # 1: bipartite pairs, scattered into the per-anchor assignment (column
-    # n_boxes collects the unmatched rows and is dropped).
-    bip_anchor = bipartite_match(sims, impl=bipartite_impl)
+    # n_boxes collects the unmatched rows and is dropped).  The padding rows
+    # are -1 and never match; the mask spares the kernel reading them.
+    bip_anchor = bipartite_match(sims, impl=bipartite_impl, row_mask=gt_mask)
     slot = torch.where(bip_anchor >= 0, bip_anchor, n_boxes).long()
     assigned = torch.full((batch, n_boxes + 1), -1, dtype=torch.long, device=dev)
     assigned.scatter_(1, slot, torch.arange(max_gt, device=dev).expand(batch, -1))

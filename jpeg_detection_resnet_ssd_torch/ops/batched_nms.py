@@ -6,6 +6,14 @@ Counterpart of the JAX package's `ops/pallas_nms.py::pallas_batched_nms_mask`.
 `batched_nms_mask_reference` on a CPU tensor; there is no fallback from the
 one to the other.  The JAX `chunk` argument was a TPU tiling detail and has
 no counterpart.
+
+A call on the card is two kernel launches, counted as one in `LAUNCHES`: the
+IoU > threshold bits of every pair j > i as 64-bit words, into an
+(N, K, ceil(K / 64)) int64 workspace the wrapper allocates, then the greedy
+scan over those words, one warp a problem.  K is bounded by the scan's shared
+memory (two blocks of 64 mask rows in flight, 1,040 bytes for each 64
+candidates: K <= 14,272) and the workspace by device memory
+(N * K * ceil(K / 64) * 8 bytes, 14.3 MB at N = 640, K = 400).
 """
 
 from __future__ import annotations
@@ -20,7 +28,7 @@ from jpeg_detection_resnet_ssd_torch.ops import _build
 # and only where it launches the kernel.
 LAUNCHES = 0
 
-_MAX_SMEM_BYTES = 48 * 1024  # static launch limit, no opt-in attribute needed
+_MAX_SMEM_BYTES = 232_448  # a block's shared memory with the opt-in attribute
 
 
 def batched_nms_mask_reference(
@@ -89,8 +97,8 @@ def batched_nms_mask(
 ) -> torch.Tensor:
     """Greedy-NMS keep mask (N, K) bool for stacked problems.
 
-    On a CUDA tensor this launches the hand-written kernel (one block per
-    problem) on the current stream; on a CPU tensor it runs
+    On a CUDA tensor this launches the hand-written kernels (the pair
+    bitmask, then the scan) on the current stream; on a CPU tensor it runs
     `batched_nms_mask_reference`.  Inputs must be float32 and contiguous.
     """
     n, k = _check(boxes, scores)
@@ -102,12 +110,15 @@ def batched_nms_mask(
         raise ValueError("batched_nms_mask needs contiguous boxes and scores")
     lib = _library()
     if lib.batched_nms_mask_smem_bytes(k) > _MAX_SMEM_BYTES:
-        raise ValueError(f"K={k} candidates do not fit one block's shared memory")
+        raise ValueError(f"K={k} candidates: the scan holds two blocks of 64 rows of ceil(K / 64) "
+                         f"8-byte words in shared memory, which takes K <= 14,272")
     keep = torch.empty((n, k), dtype=torch.bool, device=boxes.device)
+    words = torch.empty(lib.batched_nms_mask_workspace_bytes(n, k) // 8, dtype=torch.int64,
+                        device=boxes.device)
     with torch.cuda.device(boxes.device):
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         err = lib.batched_nms_mask(
-            boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(),
+            boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), words.data_ptr(),
             n, k, float(iou_threshold), float(border_delta), stream,
         )
     if err != 0:
@@ -122,11 +133,13 @@ def _library() -> ctypes.CDLL:
     # Pointers and the stream as c_void_p: left undeclared, ctypes would pass
     # them as 32-bit ints and cut them.
     lib.batched_nms_mask.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_float,
         ctypes.c_void_p,
     ]
     lib.batched_nms_mask.restype = ctypes.c_int
     lib.batched_nms_mask_smem_bytes.argtypes = [ctypes.c_int]
     lib.batched_nms_mask_smem_bytes.restype = ctypes.c_int
+    lib.batched_nms_mask_workspace_bytes.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.batched_nms_mask_workspace_bytes.restype = ctypes.c_longlong
     return lib

@@ -8,6 +8,7 @@ from jpeg_detection_resnet_ssd_torch.train.loop import (
     build_trainer,
     fit,
     make_validation_fn,
+    step_generator,
 )
 from jpeg_detection_resnet_ssd_torch.train.metrics import MetricWriter
 from jpeg_detection_resnet_ssd_torch.train import schedules
@@ -31,5 +32,6 @@ __all__ = [
     "keras_inverse_time_decay",
     "make_validation_fn",
     "schedules",
+    "step_generator",
     "warmup_linear_scaling",
 ]

@@ -70,6 +70,24 @@ def build_optimizer(config: ExperimentConfig, params, n_replicas: int = 1) -> to
     )
 
 
+_MASK64 = (1 << 64) - 1
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of train step `step` in a run seeded `seed`.
+
+    The port's counterpart of the JAX package's per-step key
+    `fold_in(PRNGKey(seed), step)`: a pure function of the pair, so a run
+    resumed at step s draws what an uninterrupted run draws at step s.  JAX's
+    keys cannot be reproduced in PyTorch, so the rule is the port's own: the
+    generator is seeded with splitmix64 of the 64-bit word
+    `(seed << 32) + step` (both taken modulo 2**64)."""
+    z = (((seed << 32) + step) + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return torch.Generator().manual_seed(z ^ (z >> 31))
+
+
 def build_trainer(config: ExperimentConfig, target_encoder=None, augment_fn=None,
                   device: str | torch.device | None = None):
     """(Trainer, module, example_inputs) for `config` on `device` (None means
@@ -127,7 +145,9 @@ def fit(
     epoch (and the last) writes a checkpoint; `config.restart` resumes from
     the latest one.  The loss is read (a synchronisation) only every
     `log_every` steps and at the end, where a non-finite value raises
-    `NaNLossError`.
+    `NaNLossError`.  Step s hands the augment hook
+    `step_generator(config.seed + 1, s)`, so a restarted run draws what an
+    uninterrupted one draws.
     """
     trainer, module, _ = build_trainer(config, target_encoder, augment_fn, device)
     if init_variables is not None:
@@ -142,14 +162,13 @@ def fit(
             ckpt.restore(trainer)
             start_epoch = trainer.step // max(config.steps_per_epoch, 1)
 
-    generator = torch.Generator().manual_seed(config.seed + 1)
     history = []
     steps_done = 0
     for epoch in range(start_epoch, config.epochs):
         t0 = time.time()
         epoch_metrics: dict[str, list] = {}
         for batch in train_pipeline:
-            metrics = trainer.train_step(batch, generator)
+            metrics = trainer.train_step(batch, step_generator(config.seed + 1, trainer.step))
             steps_done += 1
             last = bool(max_steps) and steps_done >= max_steps
             if steps_done % log_every == 0 or last:

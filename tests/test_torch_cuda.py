@@ -34,9 +34,10 @@ def cuda():
     return torch.device("cuda")
 
 
-@pytest.mark.parametrize("n,k", [(640, 400), (7, 37), (3, 1)])
+@pytest.mark.parametrize("n,k", [(640, 400), (7, 37), (3, 1), (5, 63), (5, 64), (5, 65), (2, 4096)])
 @pytest.mark.parametrize("border", sorted(BORDERS))
 def test_kernel_mask_equals_reference(cuda, n, k, border):
+    """One call (two launches: pair bitmask, scan) per `LAUNCHES` count."""
     boxes, scores = nms_problems(np.random.default_rng(n), n, k)
     b, s = torch.from_numpy(boxes).to(cuda), torch.from_numpy(scores).to(cuda)
     before = batched_nms.LAUNCHES
@@ -62,8 +63,8 @@ def test_kernel_rejects_what_it_does_not_take(cuda):
         batched_nms.batched_nms_mask(b.transpose(0, 1).contiguous().transpose(0, 1), s)
     with pytest.raises(TypeError):
         batched_nms.batched_nms_mask(b.half(), s.half())
-    with pytest.raises(ValueError, match="shared memory"):
-        batched_nms.batched_nms_mask(torch.zeros(1, 4096, 4, device=cuda), torch.ones(1, 4096, device=cuda))
+    with pytest.raises(ValueError, match="K <= 14,272"):
+        batched_nms.batched_nms_mask(torch.zeros(1, 14_273, 4, device=cuda), torch.ones(1, 14_273, device=cuda))
 
 
 @pytest.mark.parametrize("selector", ["exact", "shared"])
@@ -83,19 +84,55 @@ def _iou_sims(n_valid, seed):
     return torch.where(torch.from_numpy(mask)[..., None], sims, -1.0).contiguous()
 
 
+def _holes(sims, seed):
+    """A (B, M) row mask with seeded holes, on the device of `sims`."""
+    keep = np.random.default_rng(seed).random(sims.shape[:2]) < 0.6
+    return torch.from_numpy(keep).to(sims.device)
+
+
 @pytest.mark.parametrize("make", [
     lambda: _iou_sims([1, 3, 10, 64, 0, 7], seed=0),
     lambda: torch.from_numpy(tie_sims(np.random.default_rng(1), (5, 64, 300))),
     lambda: torch.from_numpy(tie_sims(np.random.default_rng(2), (3, 7, 33))),
+    lambda: torch.from_numpy(tie_sims(np.random.default_rng(3), (4, 1, 300))),  # M = 1
+    lambda: _iou_sims([2, 5, 64], seed=4)[..., :8731].contiguous(),  # N % 4 = 3
 ])
-def test_match_kernel_equals_reference(cuda, make):
+@pytest.mark.parametrize("mask", [None, "valid", "holes"])
+def test_match_kernel_equals_reference(cuda, make, mask):
+    """With no mask, the GT mask (rows >= 0 somewhere) or seeded holes."""
     sims = make().to(cuda)
+    row_mask = {None: None, "valid": sims.amax(-1) >= 0, "holes": _holes(sims, 5)}[mask]
     before = bipartite_match.LAUNCHES
-    got = bipartite_match.bipartite_match(sims, impl="kernel")
+    got = bipartite_match.bipartite_match(sims, impl="kernel", row_mask=row_mask)
     torch.cuda.synchronize()
     assert bipartite_match.LAUNCHES == before + 1
     assert got.dtype == torch.int32
-    assert torch.equal(got, bipartite_match.bipartite_match_reference(sims))
+    assert torch.equal(got, bipartite_match.bipartite_match_reference(sims, row_mask))
+
+
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_match_kernel_takes_an_unaligned_view(cuda, offset):
+    """A contiguous view `offset` floats past an aligned base: every row
+    starts off the 16-byte grid, so the kernel reads scalar heads and tails."""
+    sims = _iou_sims([3, 1, 64], seed=6).to(cuda)
+    flat = torch.empty(sims.numel() + offset, device=cuda)
+    view = flat[offset:].view(sims.shape)
+    view.copy_(sims)
+    assert view.data_ptr() % 16 != 0
+    mask = sims.amax(-1) >= 0
+    for row_mask in (None, mask):
+        got = bipartite_match.bipartite_match(view, impl="kernel", row_mask=row_mask)
+        assert torch.equal(got, bipartite_match.bipartite_match_reference(sims, row_mask))
+
+
+def test_match_kernel_rejects_what_it_does_not_take(cuda):
+    sims = torch.zeros(2, 4, 33, device=cuda)
+    with pytest.raises(ValueError, match="contiguous"):
+        bipartite_match.bipartite_match(sims.transpose(0, 1), impl="kernel")
+    with pytest.raises(ValueError, match="row_mask"):
+        bipartite_match.bipartite_match(sims, impl="kernel", row_mask=torch.ones(2, 4, dtype=torch.bool))
+    with pytest.raises(ValueError, match="shared memory"):
+        bipartite_match.bipartite_match(torch.zeros(1, 20_000, 1, device=cuda), impl="kernel")
 
 
 @pytest.mark.parametrize("shape", [

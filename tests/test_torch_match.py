@@ -2,7 +2,9 @@
 
 The matched indices must be exactly the JAX package's: the port's plain
 bipartite matching against `bipartite_match_xla` and against the Pallas
-kernel in interpret mode, on the same NumPy similarities.  IoU in float32
+kernel in interpret mode, on the same NumPy similarities; with a row mask,
+against `_batched_match_xla` on the similarities with the masked rows set to
+-1e30.  IoU in float32
 at rtol 1e-6 (the same operations; the backends may round a division
 differently in the last place).
 """
@@ -18,6 +20,7 @@ import torch
 from jpeg_detection_resnet_ssd_tpu.boxes import geometry as jax_geometry
 from jpeg_detection_resnet_ssd_tpu.boxes import matching as jax_matching
 from jpeg_detection_resnet_ssd_tpu.ops.pallas_match import (
+    _batched_match_xla,
     bipartite_match_xla,
     pallas_bipartite_match,
 )
@@ -75,6 +78,31 @@ def test_reference_equals_jax_xla_loop(case_results, case):
     np.testing.assert_array_equal(got, jax_xla(sims))
 
 
+def case_mask(case, sims):
+    """The row mask of a case: the GT mask for the IoU cases (rows >= 0
+    somewhere, a prefix), seeded holes for the tie-heavy one."""
+    if case.startswith("iou"):
+        return sims.max(-1) >= 0
+    return np.random.default_rng(7).random(sims.shape[:2]) < 0.6
+
+
+@pytest.mark.parametrize("case", sorted(CASES) + ["iou_b3_mask_holes"])
+def test_masked_reference_equals_jax_xla_loop(case_results, case):
+    if case == "iou_b3_mask_holes":  # valid rows that are not a prefix
+        sims = case_results["iou_b3_few_valid"][0]
+        mask = np.zeros(sims.shape[:2], bool)
+        mask[:, [0, 2, 3, 5, 7, 8, 40]] = True
+        mask[1, 1] = True  # row 1 repeats row 0: exact ties across a hole
+    else:
+        sims = case_results[case][0]
+        mask = case_mask(case, sims)
+    got = bm.bipartite_match_reference(torch.from_numpy(sims), torch.from_numpy(mask)).numpy()
+    ref = np.asarray(_batched_match_xla(jnp.where(jnp.asarray(mask)[..., None], jnp.asarray(sims),
+                                                  bm.NEG_BIG)))
+    np.testing.assert_array_equal(got, ref)
+    assert not (got[~mask] >= 0).any() and (got >= 0).any()
+
+
 @pytest.mark.parametrize("case", sorted(CASES))
 def test_reference_equals_pallas_kernel_interpret(case_results, case):
     sims, got = case_results[case]
@@ -109,6 +137,21 @@ def test_impl_dispatch_on_the_cpu():
         bm.bipartite_match(sims, impl="xla")
     with pytest.raises(TypeError):
         bm.bipartite_match(sims.double())
+    mask = torch.from_numpy(np.random.default_rng(4).random((2, 8)) < 0.5)
+    np.testing.assert_array_equal(
+        bm.bipartite_match(sims, impl="auto", row_mask=mask).numpy(),
+        bm.bipartite_match_reference(torch.where(mask[..., None], sims, bm.NEG_BIG)).numpy(),
+    )
+    np.testing.assert_array_equal(  # a mask of all rows changes nothing
+        bm.bipartite_match(sims, row_mask=torch.ones(2, 8, dtype=torch.bool)).numpy(),
+        bm.bipartite_match_reference(sims).numpy(),
+    )
+    with pytest.raises(ValueError, match="runs on cuda"):
+        bm.bipartite_match(sims, impl="kernel", row_mask=mask)
+    with pytest.raises(ValueError, match="row_mask"):
+        bm.bipartite_match(sims, row_mask=mask[:, :4])
+    with pytest.raises(ValueError, match="row_mask"):
+        bm.bipartite_match(sims, row_mask=mask.int())
 
 
 @pytest.mark.parametrize("border", sorted(BORDERS))

@@ -28,6 +28,7 @@ from jpeg_detection_resnet_ssd_torch.train import (
     fit,
     make_validation_fn,
     schedules,
+    step_generator,
 )
 from jpeg_detection_resnet_ssd_torch.train.config import create_run_dir, find_latest_run
 from jpeg_detection_resnet_ssd_torch.train.loop import _schedule_value
@@ -134,6 +135,39 @@ def test_fit_writes_history_checkpoints_and_restarts(tmp_path):
     assert state["step"] == 3 and len(state["optimizer"]["state"]) > 0
     val = make_validation_fn(resumed, batches[:1])(resumed)
     assert set(val) == {"loss"} and np.isfinite(val["loss"])
+
+
+def test_resumed_fit_draws_what_an_uninterrupted_fit_draws(tmp_path):
+    """3 epochs straight against 2 epochs and a restart to 3: the augment
+    hook sees the same draw at each step (step 2 must not replay step 0's)."""
+
+    def run(run_dir, epochs, restart=False):
+        draws = []
+
+        def augment(batch, generator):
+            draws.append(float(torch.rand((), generator=generator)))
+            return batch
+
+        cfg = ExperimentConfig(compute_dtype="float32", batch_size=1, epochs=epochs,
+                               steps_per_epoch=1, restart=restart)
+        fit(cfg, _batches(1), run_dir=str(run_dir), target_encoder=_encoder(),
+            augment_fn=augment, device="cpu")
+        return draws
+
+    straight = run(tmp_path / "straight", 3)
+    first = run(tmp_path / "resumed", 2)
+    then = run(tmp_path / "resumed", 3, restart=True)
+    assert len(straight) == 3 and len(set(straight)) == 3
+    assert first + then == straight
+
+
+def test_step_generator_is_a_function_of_seed_and_step():
+    def draw(seed, step):
+        return torch.rand(4, generator=step_generator(seed, step))
+
+    assert torch.equal(draw(1, 5), draw(1, 5))
+    assert not torch.equal(draw(1, 5), draw(1, 6))
+    assert len({tuple(draw(seed, step).tolist()) for seed in range(4) for step in range(4)}) == 16
 
 
 def test_fit_nan_guard(tmp_path):
