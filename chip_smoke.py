@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; one card, nvcc
 
-Three paths, each at the full width of `ssd300_ssd_custom`:
+Four paths, each at the full width of `ssd300_ssd_custom`:
   * inference: `build_model` -> forward on seeded DCT planes ->
     `make_inference_fn` (candidate selection, batched greedy NMS on the CUDA
     kernel, global top-200) -> (B, 200, 6) detections;
@@ -15,7 +15,13 @@ Three paths, each at the full width of `ssd300_ssd_custom`:
   * training with device augmentation: the same `fit` on 44-block (352 px)
     source maps through `make_dct_detection_augment_v3(out_y_blocks=38)`
     (photometric, expand + min-IoU crop + resize, hflip on the CUDA flip
-    kernel) and a `TargetEncoder(AnchorSpec(304, 304))`.
+    kernel) and a `TargetEncoder(AnchorSpec(304, 304))`;
+  * evaluation: `eval.DetectionEvaluator` over `make_inference_fn(
+    candidate_selector="exact")` (the decode of `cli evaluate`) on 64 seeded
+    images at batch 8 in the pipeline's evaluation contract, and the other
+    decoders of `boxes/decode.py` (`decode_detections_fast`,
+    `decode_detections_debug`, `nms_per_class`), all through the NMS kernel.
+    The card's machine has no libjpeg, so no step decodes a JPEG here.
 
 Phases (any failure exits non-zero):
   1. card name and power limit (nvidia-smi);
@@ -89,6 +95,16 @@ Phases (any failure exits non-zero):
      plain version; the augmented train step against the un-augmented one in
      four interleaved pairs, with the difference per pair, and a profiler
      window of the augmented step;
+  9d. the evaluate path on phase 6's float32 model: the evaluator with the
+     NMS kernel and with its plain version on the same raw predictions
+     (identical per-class lists, equal mAP; one kernel call per batch, read
+     around the run), then with each image's own detections >= 0.5 as its
+     GT (11-point mAP exactly 1.0 over the classes present); the three
+     other decoders with the kernel and the plain NMS on phase 6's raw f32
+     batch-32 predictions (torch.equal, one kernel call each); timings: the
+     evaluate loop's images/s at batch 8 in f32 and bf16, split into device
+     time (CUDA events around the infer function) and host time, and the
+     batch-1 latency of forward + exact decode in f32 and bf16;
  10. the `kernels` JSON line, the card line, and the final JSON line.
 
 Weights are the port's seeded init (torch.Generator seeded 0); for inference
@@ -666,8 +682,10 @@ def run_inference(dev, card):
           f"and read ({mask_bytes / H100_BYTES_PER_S * 1e3:.6f} ms at the HBM rate)")
     for name, ms in device_split(lambda: batched_nms.batched_nms_mask(nb, ns)):
         print(f"      profiler: {ms:.5f} ms per call  {name[:80]}")
-    return {"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+    return ({"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms,
+             "bound_ms": bound_ms, "bound_by": bound_by},
+            {"model_f32": model_f32, "model_bf16": model_bf16, "raw_f32": raw_f32_b32,
+             "request": (y1, c1)})
 
 
 def profile_steps(step, card, step_ms, n=3, label="train steps with both kernels"):
@@ -1122,6 +1140,179 @@ def run_augmented_training(dev, card, trainer, batch):
     return {"launches": launches["flip"], **sums, "bound_by": "bytes"}
 
 
+
+EVAL_IMAGES, EVAL_BATCH = 64, 8  # the evaluate loop's images and `evaluate`'s default batch
+
+
+def eval_batches(rng, infer, n_images=EVAL_IMAGES, batch=EVAL_BATCH):
+    """Batches in `DetectionPipeline`'s evaluation contract: seeded DCT
+    planes as NumPy arrays (Y ~ N(0, 100), CbCr ~ N(0, 30), as phase 6 makes
+    them) and GT in the 300x300 frame (so no inverters): in each image 1-4
+    random boxes and 2-5 of the model's detections (from `infer`, a pass
+    before the evaluator's) shifted by up to 8 pixels, so that the mAP
+    compared below is not 0; a quarter of the boxes 'difficult'."""
+    out = []
+    for b in range(n_images // batch):
+        inputs = (rng.normal(0, 100, (batch, 38, 38, 64)).astype(np.float32),
+                  rng.normal(0, 30, (batch, 19, 19, 128)).astype(np.float32))
+        dets = infer(inputs).cpu().numpy()
+        labels, difficult = [], []
+        for i in range(batch):
+            k = int(rng.integers(1, 5))
+            xy0 = rng.uniform(0, 240, (k, 2))
+            xy1 = np.minimum(xy0 + rng.uniform(10, 200, (k, 2)), 300)
+            near = dets[i, rng.choice(50, int(rng.integers(2, 6)), replace=False)][:, [0, 2, 3, 4, 5]]
+            near[:, 1:] += rng.uniform(-8, 8, (len(near), 4))
+            rows = np.concatenate([np.concatenate([rng.integers(1, 21, (k, 1)), xy0, xy1], 1), near])
+            labels.append(rows.astype(np.float32))
+            difficult.append(rng.random(len(rows)) < 0.25)
+        out.append({
+            "inputs": inputs, "labels": labels, "difficult": difficult,
+            "inverters": [None] * batch, "image_ids": [f"{b * batch + i:06d}" for i in range(batch)],
+        })
+    return out
+
+
+def run_evaluate(card, model_f32, model_bf16, raw_f32, request):
+    """Phase 9d: the evaluate path (`DetectionEvaluator` over the `exact`
+    inference function) and the A16 decoders on phase 6's calibrated model,
+    in float32 with TF32 off; then the evaluate loop's and a request's
+    times.  The card's machine has no libjpeg (no header, no library: the
+    installation probe recorded in README.md), so this phase has no JPEG
+    step; the JPEG half of the path runs in the CPU tests."""
+    from jpeg_detection_resnet_ssd_torch.boxes import decode as dec
+    from jpeg_detection_resnet_ssd_torch.boxes.anchors import AnchorSpec
+    from jpeg_detection_resnet_ssd_torch.eval import DetectionEvaluator, num_gt_per_class
+    from jpeg_detection_resnet_ssd_torch.models import make_inference_fn
+    from jpeg_detection_resnet_ssd_torch.ops import batched_nms
+
+    print(f"[9d] evaluate path: DetectionEvaluator over the exact decode, {EVAL_IMAGES} images at "
+          f"batch {EVAL_BATCH}, f32 (TF32 off); A16 decoders")
+    decode = {impl: make_inference_fn(n_classes=20, spec=AnchorSpec(), candidate_selector="exact",
+                                      nms_impl=impl)
+              for impl in ("kernel", "reference")}
+    with torch.no_grad():
+        batches = eval_batches(np.random.default_rng(5), lambda x: decode["kernel"](model_f32(x)))
+    raws, dets = [], []
+
+    def infer_kernel(inputs):
+        with torch.no_grad():
+            raw = model_f32(inputs)
+        raws.append(raw)
+        dets.append(decode["kernel"](raw))
+        return dets[-1]
+
+    replay = iter(raws)
+    batched_nms.LAUNCHES = 0
+    ev_kernel = DetectionEvaluator(infer_kernel, batches, n_classes=20)
+    map_kernel, aps_kernel, _ = ev_kernel()
+    torch.cuda.synchronize()
+    launches = batched_nms.LAUNCHES
+    print(f"    NMS kernel launches on the evaluate path: {launches}")
+    check(launches == len(batches), f"one NMS kernel call per batch ({len(batches)} batches)")
+    ev_plain = DetectionEvaluator(lambda _: decode["reference"](next(replay)), batches, n_classes=20)
+    map_plain, aps_plain, _ = ev_plain()
+    n_preds = sum(map(len, ev_kernel.prediction_results))
+    check(batched_nms.LAUNCHES == launches, "the plain run launched no NMS kernel")
+    check(ev_kernel.prediction_results == ev_plain.prediction_results and n_preds > 0,
+          f"kernel and plain NMS: identical per-class prediction lists ({n_preds} predictions)")
+    check(map_kernel == map_plain and aps_kernel == aps_plain and map_kernel > 0,
+          f"kernel and plain NMS: equal mAP ({map_kernel!r}) and per-class APs")
+    check(all(d.shape == (EVAL_BATCH, 200, 6) and bool(torch.isfinite(d).all()) for d in dets),
+          f"evaluate detections: ({EVAL_BATCH}, 200, 6) and finite in every batch")
+
+    # Each image's own detections with score >= 0.5 as its ground truth.
+    own = []
+    for batch, det in zip(batches, dets):
+        rows = [d[d[:, 1] >= 0.5].cpu().numpy() for d in det]
+        own.append({**batch, "labels": [r[:, [0, 2, 3, 4, 5]] for r in rows],
+                    "difficult": [np.zeros(len(r), bool) for r in rows]})
+    replay_dets = iter(dets)
+    ev_own = DetectionEvaluator(lambda _: next(replay_dets), own, n_classes=20)
+    _, aps_own, _ = ev_own(average_precision_mode="sample")
+    n_gt = num_gt_per_class(ev_own.ground_truth, 20)
+    present = [c for c in range(1, 21) if n_gt[c] > 0]
+    map_own = float(np.mean([aps_own[c] for c in present])) if present else float("nan")
+    check(bool(present) and map_own == 1.0,
+          f"mAP exactly 1.0 on the model's own detections >= 0.5 as GT "
+          f"({int(n_gt.sum())} GT boxes in {len(present)} classes; 11-point AP)")
+
+    # The A16 decoders on phase 6's raw f32 predictions (batch 32).
+    _, boxes = dec.decode_raw_predictions(raw_f32[0], img_height=300, img_width=300)
+    cls = int((raw_f32[0, :, 1:21] > 0.01).sum(0).argmax()) + 1
+    a16 = {
+        "decode_detections_fast": lambda impl: dec.decode_detections_fast(raw_f32, nms_impl=impl),
+        "decode_detections_debug": lambda impl: dec.decode_detections_debug(
+            raw_f32, n_classes=20, nms_impl=impl),
+        f"nms_per_class (image 0, class {cls}, K = 400)": lambda impl: torch.cat(
+            [t.reshape(400, -1) for t in dec.nms_per_class(boxes, raw_f32[0, :, cls], nms_impl=impl)], 1),
+    }
+    for name, fn in a16.items():
+        batched_nms.LAUNCHES = 0
+        got = fn("kernel")
+        torch.cuda.synchronize()
+        n_launch = batched_nms.LAUNCHES
+        ref = fn("reference")
+        check(n_launch == 1 and torch.equal(got, ref),
+              f"{name}: kernel == plain NMS (torch.equal), {n_launch} NMS kernel call, "
+              f"{int((got[..., -5] > 0).sum())} rows kept")
+
+    print(f"[9d] evaluate timings on {card}: median [min-max] of 5 windows, each one "
+          f"DetectionEvaluator run over {EVAL_IMAGES} images at batch {EVAL_BATCH}")
+    for label, model in (("f32", model_f32), ("bf16", model_bf16)):
+        walls, devs, hosts = [], [], []
+        for w in range(6):  # the first run warms up
+            spans = []
+
+            def infer(inputs):
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                with torch.no_grad():
+                    out = decode["kernel"](model(inputs))
+                end.record()
+                spans.append((start, end))
+                return out
+
+            ev = DetectionEvaluator(infer, batches, n_classes=20)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ev()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+            dev_ms = sum(a.elapsed_time(b) for a, b in spans)
+            if w:
+                walls.append(wall_ms)
+                devs.append(dev_ms)
+                hosts.append(wall_ms - dev_ms)
+        if label == "f32":
+            profile_steps(lambda: DetectionEvaluator(infer, batches, n_classes=20)(), card,
+                          float(np.median(walls)), n=2, label="evaluate runs (f32)")
+        rate = [EVAL_IMAGES / (x * 1e-3) for x in walls]
+        print(f"    evaluate loop {label}: {float(np.median(rate)):.1f} images/s "
+              f"[{min(rate):.1f}-{max(rate):.1f}]; {float(np.median(walls)):.3f} ms a run "
+              f"[{min(walls):.3f}-{max(walls):.3f}]; device (events around the infer function) "
+              f"{float(np.median(devs)):.3f} ms [{min(devs):.3f}-{max(devs):.3f}]; host (the rest of "
+              f"predict_on_dataset, then matching and AP) {float(np.median(hosts)):.3f} ms "
+              f"[{min(hosts):.3f}-{max(hosts):.3f}]  [{card}]")
+
+    decode_exact = decode["kernel"]
+    for label, model in (("f32", model_f32), ("bf16", model_bf16)):
+        with torch.no_grad():
+            for _ in range(5):
+                decode_exact(model(request))
+        torch.cuda.synchronize()
+        per_window = []
+        for _ in range(5):
+            t0 = time.perf_counter()
+            for _ in range(20):
+                with torch.no_grad():
+                    decode_exact(model(request))
+                torch.cuda.synchronize()
+            per_window.append((time.perf_counter() - t0) * 1e3 / 20)
+        print(f"    batch-1 latency, forward + exact decode, {label}: "
+              f"{float(np.median(per_window)):.4f} ms [{min(per_window):.4f}-{max(per_window):.4f}] "
+              f"(host clock to synchronize, mean of 20 requests a window)  [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1162,9 +1353,10 @@ def main() -> int:
     print("[5c] augmentation chain: card (flip kernel, TF32 off) vs CPU, one set of host draws")
     check_chain(dev)
 
-    nms = run_inference(dev, card)
+    nms, served = run_inference(dev, card)
     train = run_training(dev, card, stress_sims, stress_mask)
     flip = run_augmented_training(dev, card, train["trainer"], train["batch"])
+    run_evaluate(card, **served)
 
     print(f"[10] done in {time.perf_counter() - t_start:.1f} s")
     source = "jpeg_detection_resnet_ssd_torch/ops/csrc/{}.cu"

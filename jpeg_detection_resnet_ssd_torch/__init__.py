@@ -2,16 +2,20 @@
 
 The JAX package beside this one is the reference; this package mirrors its
 subpackage layout (`boxes`, `models`, `losses`, `train`, `ops`, `compat`,
-`utils`), public function names, NHWC input contracts and Keras layer names,
-so any ported function can be called on both packages with the same NumPy
-arrays.
+`dctjpeg`, `data`, `eval`, `cli`, `utils`), public function names, NHWC
+input contracts and Keras layer names, so any ported function can be called
+on both packages with the same NumPy arrays.
 
-It imports torch, numpy and the standard library only: never jax, flax or
-the JAX package.  Entry points (`models.build_model`,
+It imports torch, numpy and the standard library at module level: never
+jax, flax or the JAX package.  PIL, OpenCV and h5py are imported only inside
+the functions that decode images, resize them or read H5 files, and the
+JPEG decoder (`dctjpeg`) is built with g++ against libjpeg at first use.
+Entry points (`models.build_model`,
 `models.make_inference_fn`, `boxes.TargetEncoder`, `train.Trainer`,
 `train.build_trainer`, `train.fit`, the `ops.make_dct_detection_augment*`
-makers) run on the CUDA device unless the caller
-passes `device="cpu"`, and raise when no CUDA device is present.
+makers, the command line's `evaluate` and `infer`) run on the CUDA device
+unless the caller passes `device="cpu"`, and raise when no CUDA device is
+present.
 
 The hand-written kernels of the ported slices (`ops/csrc/`), one for each
 Pallas kernel of the JAX package: the batched greedy NMS

@@ -13,7 +13,10 @@ from jpeg_detection_resnet_ssd_torch.boxes.anchors import (
 )
 from jpeg_detection_resnet_ssd_torch.boxes.decode import (
     decode_detections,
+    decode_detections_debug,
+    decode_detections_fast,
     decode_raw_predictions,
+    nms_per_class,
     select_candidates,
 )
 from jpeg_detection_resnet_ssd_torch.boxes.geometry import (

@@ -1,0 +1,201 @@
+"""Host-side input pipeline: threaded decode -> resize -> DCT -> batches.
+
+Counterpart of the JAX package's `data/pipeline.py` for detection, with the
+same seeded epoch order and per-item generators, so both packages yield equal
+batches from one dataset:
+
+  * per-epoch shuffle from `np.random.default_rng((seed, epoch))` when
+    training, dataset order otherwise;
+  * a thread pool runs the per-image work (PIL decode, resize, JPEG
+    re-encode, native DCT decode); libjpeg, cv2 and ctypes release the GIL.
+
+Input formats:
+  'dct'        -> (y, cbcr)
+  'dct_deconv' -> (y, cb, cr)
+  'rgb'        -> float32 image
+  'dct_image'  -> (H, W, 3) DCT plane (jpegdecoder layout)
+  'dct_255'    -> (H, W, 3) DCT plane rescaled to 0-255
+
+Not ported yet (ROADMAP A10b): the host training augmentation
+(`augmentation="default"` with `train=True`), `prefetch_to_device`,
+`ClassificationPipeline` and `DeviceDCTAugmentedPipeline`.  PIL is imported
+inside the functions that decode, so the package imports without it.
+"""
+
+from __future__ import annotations
+
+import io
+from concurrent.futures import ThreadPoolExecutor
+from typing import Any, Callable
+
+import numpy as np
+
+from jpeg_detection_resnet_ssd_torch.data import augment as aug
+from jpeg_detection_resnet_ssd_torch.data.dct_convert import (
+    rgb_to_dct_image,
+    rgb_to_dct_tensors,
+)
+
+
+def _load_rgb(path: str) -> np.ndarray:
+    from PIL import Image
+
+    with Image.open(path) as im:
+        return np.asarray(im.convert("RGB"))
+
+
+def _load_record_rgb(rec: dict) -> np.ndarray:
+    """Decode a detection record's image from bytes (HDF5 cache) or path."""
+    if "image_bytes" in rec:
+        from PIL import Image
+
+        with Image.open(io.BytesIO(rec["image_bytes"])) as im:
+            return np.asarray(im.convert("RGB"))
+    return _load_rgb(rec["image_path"])
+
+
+def _pack_inputs(images: list[np.ndarray], input_format: str):
+    if input_format == "rgb":
+        return np.stack(images).astype(np.float32)
+    if input_format == "dct_image":
+        return np.stack(
+            [rgb_to_dct_image(im) for im in images]
+        ).astype(np.float32)
+    if input_format == "dct_255":
+        # The `_dct_255` generator variant: each dequantized coefficient of
+        # the jpegdecoder layout rescaled into 0-255 with the reference's
+        # integer arithmetic `(x + 1024) * 255 // 2048` (floor division).
+        planes = np.stack(
+            [rgb_to_dct_image(im) for im in images]
+        ).astype(np.int64)
+        return ((planes + 1024) * 255 // 2048).astype(np.float32)
+    ys, cbcrs = zip(*(rgb_to_dct_tensors(im) for im in images))
+    y = np.stack(ys).astype(np.float32)
+    cbcr = np.stack(cbcrs).astype(np.float32)
+    if input_format == "dct_deconv":
+        cb, cr = cbcr[..., :64], cbcr[..., 64:]
+        return (y, cb, cr)
+    if input_format == "dct":
+        return (y, cbcr)
+    raise ValueError(f"unknown input_format {input_format!r}")
+
+
+class _BasePipeline:
+    def __init__(self, dataset, batch_size: int, *, train: bool,
+                 input_format: str = "dct", seed: int = 0,
+                 num_workers: int = 8, drop_remainder: bool | None = None):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.train = train
+        self.input_format = input_format
+        self.seed = seed
+        self.num_workers = num_workers
+        self.drop_remainder = train if drop_remainder is None else drop_remainder
+        self._pool = ThreadPoolExecutor(max_workers=num_workers)
+        self._epoch = 0
+
+    def __len__(self):
+        n = len(self.dataset)
+        if self.drop_remainder:
+            return n // self.batch_size
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _epoch_order(self):
+        order = np.arange(len(self.dataset))
+        if self.train:
+            np.random.default_rng((self.seed, self._epoch)).shuffle(order)
+        self._epoch += 1
+        return order
+
+    def _item_rng(self, index: int) -> np.random.Generator:
+        return np.random.default_rng((self.seed, self._epoch, int(index)))
+
+    def __iter__(self):
+        order = self._epoch_order()
+        nb = len(self)
+        for b in range(nb):
+            idx = order[b * self.batch_size : (b + 1) * self.batch_size]
+            items = list(self._pool.map(self._prepare_item, idx))
+            yield self._collate(items)
+
+    def _prepare_item(self, index):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+    def _collate(self, items):  # pragma: no cover - abstract
+        raise NotImplementedError
+
+
+class DetectionPipeline(_BasePipeline):
+    """Pascal-VOC-style detection batches.
+
+    Training (`encoder` set): yields {'inputs', 'targets'}, or with
+    `device_encode` the padded GT {'inputs', 'gt', 'gt_mask'} for a
+    `Trainer` whose target encoder runs inside the step.  `targets` is the
+    encoder's output, a tensor on the encoder's device.  Evaluation
+    (`encoder=None`): yields {'inputs', 'labels', 'image_ids', 'inverters',
+    'difficult'}, where the inverters map predicted boxes back to original
+    image coordinates.
+
+    `augmentation`: "default" is the Caffe-SSD host chain when training (not
+    ported yet: ROADMAP A10b) and none otherwise; None resizes only; a
+    callable `(image, labels, rng) -> (image, labels)` is used as it is.
+    """
+
+    def __init__(self, dataset, batch_size: int, *, train: bool,
+                 encoder=None, augmentation: Callable | str | None = "default",
+                 input_format: str = "dct", img_height: int = 300,
+                 img_width: int = 300, max_gt: int = 64,
+                 device_encode: bool = False, **kw):
+        if augmentation == "default" and train:
+            raise NotImplementedError(
+                "the host SSD augmentation chain (SSDDataAugmentation) is not ported "
+                "to PyTorch yet (ROADMAP A10b); pass augmentation=None or a callable"
+            )
+        super().__init__(dataset, batch_size, train=train,
+                         input_format=input_format, **kw)
+        self.encoder = encoder
+        self.device_encode = device_encode
+        self.img_height, self.img_width = img_height, img_width
+        self.max_gt = max_gt
+        self.augmentation = None if augmentation == "default" else augmentation
+
+    def _prepare_item(self, index):
+        rec = self.dataset[int(index)]
+        image = _load_record_rgb(rec)
+        labels = rec["boxes"].copy()
+        inverter = None
+        if self.augmentation is not None:
+            image, labels = self.augmentation(
+                image, labels, self._item_rng(index)
+            )
+        else:
+            image = aug.to_3_channels(image)
+            image, labels, inverter = aug.resize(
+                image, labels, self.img_height, self.img_width,
+                filter_degenerate=False, return_inverter=True,
+            )
+        difficult = rec.get(
+            "difficult", np.zeros(len(rec["boxes"]), bool)
+        )
+        return image, labels, rec.get("image_id"), inverter, rec, difficult
+
+    def _collate(self, items):
+        images = [it[0] for it in items]
+        labels_list = [it[1] for it in items]
+        batch: dict[str, Any] = {
+            "inputs": _pack_inputs(images, self.input_format)
+        }
+        if self.encoder is not None:
+            gt, mask = self.encoder.pad_labels(labels_list, self.max_gt)
+            if self.device_encode:
+                batch["gt"] = gt
+                batch["gt_mask"] = mask
+            else:
+                batch["targets"] = self.encoder(gt, mask)
+        else:
+            # Evaluation contract: original-coordinate GT + inverse transforms.
+            batch["labels"] = [it[4]["boxes"] for it in items]
+            batch["image_ids"] = [it[2] for it in items]
+            batch["inverters"] = [it[3] for it in items]
+            batch["difficult"] = [it[5] for it in items]
+        return batch

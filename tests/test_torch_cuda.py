@@ -12,6 +12,7 @@ import pytest
 import torch
 
 from jpeg_detection_resnet_ssd_torch.boxes import decode, geometry
+from jpeg_detection_resnet_ssd_torch.eval.map_eval import DetectionEvaluator
 from jpeg_detection_resnet_ssd_torch.boxes.anchors import AnchorSpec, build_anchors
 from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
 from jpeg_detection_resnet_ssd_torch.ops import _draws, batched_nms, bipartite_match, conv_grad, dct_flip
@@ -223,3 +224,65 @@ def test_chain_on_the_card_equals_the_cpu(cuda, photometric, quality):
     assert_augment_matches([t.cpu() for t in (*got["inputs"], got["gt"], got["gt_mask"])],
                            [*ref["inputs"], ref["gt"], ref["gt_mask"]],
                            rtol=1e-4 if photometric == "pixel_hsv" else 1e-5, quality=quality)
+
+
+# The A16 decoders on the card: the same raw predictions through the NMS
+# kernel and through its plain version.
+A16_DECODERS = {
+    "fast": lambda y, impl: decode.decode_detections_fast(y, confidence_thresh=0.3, nms_impl=impl),
+    "debug": lambda y, impl: decode.decode_detections_debug(y, n_classes=N_CLASSES, nms_impl=impl),
+}
+
+
+@pytest.mark.parametrize("name", sorted(A16_DECODERS))
+def test_a16_decoder_kernel_equals_reference(cuda, name):
+    y = torch.from_numpy(raw_predictions(seed=8, batch=4)).to(cuda)
+    before = batched_nms.LAUNCHES
+    got = A16_DECODERS[name](y, "kernel")
+    torch.cuda.synchronize()
+    assert batched_nms.LAUNCHES == before + 1
+    assert torch.equal(got, A16_DECODERS[name](y, "reference"))
+    assert int((got[..., -5] > 0).sum()) > 0
+
+
+@pytest.mark.parametrize("k", [400, 1])
+def test_nms_per_class_kernel_equals_reference(cuda, k):
+    y = torch.from_numpy(raw_predictions(seed=9, batch=1)).to(cuda)
+    _, boxes = decode.decode_raw_predictions(y[0], img_height=300, img_width=300)
+    for cls in (1, 7, N_CLASSES):
+        kw = dict(confidence_thresh=0.01, nms_max_output_size=k)
+        before = batched_nms.LAUNCHES
+        got = decode.nms_per_class(boxes, y[0, :, cls], nms_impl="kernel", **kw)
+        torch.cuda.synchronize()
+        assert batched_nms.LAUNCHES == before + 1
+        ref = decode.nms_per_class(boxes, y[0, :, cls], nms_impl="reference", **kw)
+        assert got[0].shape == (k,)
+        assert torch.equal(got[0], ref[0]) and torch.equal(got[1], ref[1])
+
+
+def test_evaluator_kernel_and_plain_nms_give_identical_lists(cuda):
+    """DetectionEvaluator through the exact decode, B1 against its plain
+    version, on the same raw predictions: three batches, one B1 call each."""
+    raw = [torch.from_numpy(raw_predictions(seed=10 + b, batch=3)).to(cuda) for b in range(3)]
+    rng = np.random.default_rng(0)
+    batches = []
+    for b in range(3):
+        gt, mask = gt_batch(rng, [1, 3, 5])
+        batches.append({
+            "inputs": (b,), "image_ids": [f"{b}_{i}" for i in range(3)], "inverters": [None] * 3,
+            "labels": [gt[i][mask[i]] for i in range(3)],
+            "difficult": [rng.random(int(mask[i].sum())) < 0.3 for i in range(3)],
+        })
+    results = {}
+    for impl in ("kernel", "reference"):
+        before = batched_nms.LAUNCHES
+        ev = DetectionEvaluator(
+            lambda inputs: decode.decode_detections(
+                raw[inputs[0]], n_classes=N_CLASSES, candidate_selector="exact", nms_impl=impl),
+            batches, n_classes=N_CLASSES)
+        results[impl] = (ev(), ev.prediction_results, batched_nms.LAUNCHES - before)
+    (map_k, aps_k, _), preds_k, launches_k = results["kernel"]
+    (map_r, aps_r, _), preds_r, launches_r = results["reference"]
+    assert (launches_k, launches_r) == (3, 0)
+    assert preds_k == preds_r and sum(map(len, preds_k)) > 100
+    assert map_k == map_r and aps_k == aps_r

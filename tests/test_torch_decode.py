@@ -107,3 +107,85 @@ def test_approx_selectors_are_exact():
         y, candidate_selector="shared", pool_topk_impl="approx", **kw
     )
     assert torch.equal(shared, pool_approx)
+
+
+def fake_preds(seed, n_boxes=150, n_classes=3):
+    """Raw predictions whose decoded boxes and scores are controlled, as the
+    JAX package's decode tests build them (`tests/test_boxes.py`): anchors
+    scattered over the image, uniform class scores, offsets ~ N(0, 0.5)."""
+    rng = np.random.default_rng(seed)
+    xy = rng.uniform(0, 0.7, (n_boxes, 2))
+    wh = rng.uniform(0.05, 0.3, (n_boxes, 2))
+    cent = np.concatenate([xy + wh / 2, wh], axis=1).astype(np.float32)
+    variances = np.tile([0.1, 0.1, 0.2, 0.2], (n_boxes, 1)).astype(np.float32)
+    logits = rng.uniform(0, 1, (n_boxes, n_classes + 1)).astype(np.float32)
+    scores = logits / logits.sum(axis=1, keepdims=True)
+    offsets = rng.normal(0, 0.5, (n_boxes, 4)).astype(np.float32)
+    return np.concatenate([scores, offsets, cent, variances], axis=1)[None]
+
+
+# (raw predictions, n_classes, keyword arguments) of the A16 decoders.
+A16_CASES = {
+    "fake": (lambda: fake_preds(0), 3, dict(confidence_thresh=0.3, top_k=50, nms_max_output_size=64)),
+    "fake_pad": (lambda: fake_preds(1, n_boxes=60), 3,
+                 dict(confidence_thresh=0.2, top_k=100, nms_max_output_size=64)),
+    "ssd300": (lambda: raw_predictions(seed=6), N_CLASSES, dict(confidence_thresh=0.01)),
+    "ssd300_include": (lambda: raw_predictions(seed=7, batch=1), N_CLASSES,
+                       dict(confidence_thresh=0.05, border_pixels="include", top_k=100)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(A16_CASES))
+def test_decode_detections_debug_matches_jax(case):
+    make, n_classes, kw = A16_CASES[case]
+    y = make()
+    ref = np.asarray(jax_decode.decode_detections_debug(jnp.asarray(y), n_classes=n_classes, **kw))
+    got = port_decode.decode_detections_debug(torch.from_numpy(y), n_classes=n_classes, **kw).numpy()
+    assert got.shape == ref.shape == (y.shape[0], kw.get("top_k", 200), 7)
+    np.testing.assert_array_equal(got[..., 0], ref[..., 0])  # box ids, exact
+    assert_same_detections(got[..., 1:], ref[..., 1:])
+    assert (got[..., 2] > 0).sum() > 10
+    plain = port_decode.decode_detections(torch.from_numpy(y), n_classes=n_classes, **kw).numpy()
+    np.testing.assert_array_equal(got[..., 1:], plain)
+
+
+@pytest.mark.parametrize("case", sorted(A16_CASES))
+def test_decode_detections_fast_matches_jax(case):
+    make, _, kw = A16_CASES[case]
+    y = make()
+    kw = dict(kw, confidence_thresh=max(kw["confidence_thresh"], 0.25))
+    ref = np.asarray(jax_decode.decode_detections_fast(jnp.asarray(y), **kw))
+    got = port_decode.decode_detections_fast(torch.from_numpy(y), **kw).numpy()
+    assert got.shape == ref.shape == (y.shape[0], kw.get("top_k", 200), 6)
+    assert_same_detections(got, ref)
+    assert (got[..., 1] > 0).sum() > 3
+
+
+@pytest.mark.parametrize("case,k", [("fake", 64), ("ssd300", 400), ("ssd300", 1)])
+@pytest.mark.parametrize("border", ["half", "include"])
+def test_nms_per_class_matches_jax(case, k, border):
+    make, n_classes, _ = A16_CASES[case]
+    y = make()
+    _, boxes = port_decode.decode_raw_predictions(torch.from_numpy(y[0]), img_height=300,
+                                                  img_width=300)
+    for cls in (1, n_classes):
+        kw = dict(confidence_thresh=0.05, nms_max_output_size=k, border_pixels=border)
+        scores = np.ascontiguousarray(y[0, :, cls])
+        ref_s, ref_b = jax_decode.nms_per_class(jnp.asarray(boxes.numpy()), jnp.asarray(scores), **kw)
+        got_s, got_b = port_decode.nms_per_class(boxes, torch.from_numpy(scores), **kw)
+        assert got_s.shape == (k,) and got_b.shape == (k, 4)
+        np.testing.assert_array_equal(got_s.numpy() > 0, np.asarray(ref_s) > 0)  # kept, exact
+        np.testing.assert_array_equal(got_s.numpy(), np.asarray(ref_s))
+        np.testing.assert_allclose(got_b.numpy(), np.asarray(ref_b), rtol=1e-6, atol=1e-5)
+
+
+def test_a16_nms_impls_on_cpu():
+    y = torch.from_numpy(fake_preds(2))
+    for fn, kw in ((port_decode.decode_detections_debug, dict(n_classes=3)),
+                   (port_decode.decode_detections_fast, {})):
+        assert torch.equal(fn(y, nms_impl="auto", **kw), fn(y, nms_impl="reference", **kw))
+        with pytest.raises(ValueError, match="CUDA"):
+            fn(y, nms_impl="kernel", **kw)
+    _, boxes = port_decode.decode_raw_predictions(y[0], img_height=300, img_width=300)
+    with pytest.raises(ValueError, match="nms_impl"):
+        port_decode.nms_per_class(boxes, y[0, :, 1], nms_impl="xla")

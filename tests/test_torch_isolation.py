@@ -35,12 +35,17 @@ def port_modules():
     )
 
 
-def test_every_module_imports_without_jax_or_flax():
+def import_every_module_without(blocked):
+    """Import every port module in a fresh interpreter where the modules
+    `blocked` cannot be imported; fails if one is needed or if anything of
+    the JAX package is imported."""
     mods = [port.__name__, *port_modules()]
-    assert len(mods) >= 15
+    assert len(mods) >= 54
+    assert {"jpeg_detection_resnet_ssd_torch.cli.main", "jpeg_detection_resnet_ssd_torch.dctjpeg",
+            "jpeg_detection_resnet_ssd_torch.data.pipeline"} <= set(mods)
     code = (
         "import sys\n"
-        "for name in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        f"for name in {blocked!r}:\n"
         "    sys.modules[name] = None\n"
         "import importlib\n"
         f"for m in {mods!r}:\n"
@@ -56,6 +61,16 @@ def test_every_module_imports_without_jax_or_flax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "ok"
+
+
+def test_every_module_imports_without_jax_or_flax():
+    import_every_module_without(("jax", "jaxlib", "flax", "optax"))
+
+
+def test_every_module_imports_without_pil_cv2_or_h5py():
+    """The card's machine may lack the host image and weight-file packages:
+    the port imports them only inside the functions that use them."""
+    import_every_module_without(("PIL", "cv2", "h5py"))
 
 
 def _imported_names(path):

@@ -2,13 +2,17 @@
 (no jax), so the card-only tests in `test_torch_cuda.py` can use them on a
 machine without JAX."""
 
+from pathlib import Path
+
 import numpy as np
 
 from jpeg_detection_resnet_ssd_torch.boxes.anchors import AnchorSpec, build_anchors
+from jpeg_detection_resnet_ssd_torch.data.datasets import VOC_CLASSES
 from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
 from jpeg_detection_resnet_ssd_torch.ops.jpeg_quant import quant_tables
 
 N_CLASSES = 20
+GOLDEN_JPEG = Path(__file__).resolve().parent / "data" / "golden.jpg"
 BORDERS = {"half": 0.0, "include": 1.0, "exclude": -1.0}
 
 
@@ -130,3 +134,39 @@ def assert_augment_matches(got, ref, rtol=1e-5, quality=None):
         assert diff.sum() <= 1e-4 * a.size, (i, int(diff.sum()))
         q = np.broadcast_to(steps[i], a.shape)
         np.testing.assert_allclose(np.abs(a - b)[diff], q[diff], rtol=1e-6)
+
+
+def write_voc_tree(root, n_images=4, seed=0, image_set="test.txt"):
+    """A seeded Pascal-VOC tree under `root` (JPEGImages/, Annotations/,
+    ImageSets/Main/<image_set>): images of varied sizes with smooth content
+    written by PIL, 1-4 objects each, some 'difficult' or 'truncated', one
+    of an unknown class.  Returns the image ids in set-file order."""
+    from PIL import Image
+
+    rng = np.random.default_rng(seed)
+    for sub in ("JPEGImages", "Annotations", "ImageSets/Main"):
+        (Path(root) / sub).mkdir(parents=True, exist_ok=True)
+    ids = []
+    for i in range(n_images):
+        image_id = f"{seed:02d}{i:04d}"
+        ids.append(image_id)
+        h, w = int(rng.integers(150, 330)), int(rng.integers(150, 400))
+        yy, xx = np.mgrid[0:h, 0:w]
+        base = 100 + 60 * np.sin(xx / rng.uniform(6, 20)) + 0.3 * yy
+        arr = np.stack([base, 0.7 * base + 30, 255 - base], -1) + rng.normal(0, 10, (h, w, 3))
+        Image.fromarray(np.clip(arr, 0, 255).astype(np.uint8)).save(
+            Path(root) / "JPEGImages" / f"{image_id}.jpg", "jpeg")
+        objs = []
+        for j in range(int(rng.integers(1, 5))):
+            x0, y0 = rng.integers(0, w - 40), rng.integers(0, h - 40)
+            x1, y1 = x0 + rng.integers(20, w - x0), y0 + rng.integers(20, h - y0)
+            name = "unicorn" if (i, j) == (1, 1) else VOC_CLASSES[int(rng.integers(0, 20))]
+            objs.append(
+                f"<object><name>{name}</name><difficult>{int(rng.random() < 0.25)}</difficult>"
+                f"<truncated>{int(rng.random() < 0.25)}</truncated><bndbox><xmin>{x0}</xmin>"
+                f"<ymin>{y0}</ymin><xmax>{x1}</xmax><ymax>{y1}</ymax></bndbox></object>")
+        (Path(root) / "Annotations" / f"{image_id}.xml").write_text(
+            f"<annotation><size><width>{w}</width><height>{h}</height><depth>3</depth></size>"
+            + "".join(objs) + "</annotation>")
+    (Path(root) / "ImageSets" / "Main" / image_set).write_text("\n".join(ids) + "\n")
+    return ids
