@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; one card, nvcc
 
-Four paths, each at the full width of `ssd300_ssd_custom`:
+Five paths, each at the full width of `ssd300_ssd_custom`:
   * inference: `build_model` -> forward on seeded DCT planes ->
     `make_inference_fn` (candidate selection, batched greedy NMS on the CUDA
     kernel, global top-200) -> (B, 200, 6) detections;
@@ -20,7 +20,11 @@ Four paths, each at the full width of `ssd300_ssd_custom`:
     candidate_selector="exact")` (the decode of `cli evaluate`) on 64 seeded
     images at batch 8 in the pipeline's evaluation contract, and the other
     decoders of `boxes/decode.py` (`decode_detections_fast`,
-    `decode_detections_debug`, `nms_per_class`), all through the NMS kernel.
+    `decode_detections_debug`, `nms_per_class`), all through the NMS kernel;
+  * `train-detect`: `cli.main(["train-detect", "--device-augment",
+    "--pack-cache", ...])` in this process, from a VOC tree and its packed
+    corpus written with NumPy, at batch 32 bf16 with all three training
+    kernels, then `--restart`.
     The card's machine has no libjpeg, so no step decodes a JPEG here.
 
 Phases (any failure exits non-zero):
@@ -105,6 +109,18 @@ Phases (any failure exits non-zero):
      evaluate loop's images/s at batch 8 in f32 and bf16, split into device
      time (CUDA events around the infer function) and host time, and the
      batch-1 latency of forward + exact decode in f32 and bf16;
+ 9e. `train-detect` from a packed corpus: a VOC tree of 96 annotations
+     (1-4 boxes each) and its corpus at 352 px (int16 Y ~ N(0, 100), CbCr ~
+     N(0, 30), the XML boxes scaled), written with NumPy; the CLI with
+     `--device-augment --pack-cache --pallas-wgrad`, batch 32, 3 steps:
+     the row's loss finite, a checkpoint, launches reset just before and
+     read just after (matching 1, flip 2, filter gradient 24 a step); the
+     same with `--restart --max-steps 6`: the same run dir, epoch 1; C2 in
+     float32 at batch 2: `--steps-per-call 3` against `1` (losses within
+     1e-4, parameters within 1e-3 of the largest), beside a second `1` run
+     (the card's run-to-run spread); warm steps/s, a `PackedDctPipeline`
+     batch's host time, one batch's copy from pinned and from pageable
+     memory, and `prefetch_to_device` per batch;
  10. the `kernels` JSON line, the card line, and the final JSON line.
 
 Weights are the port's seeded init (torch.Generator seeded 0); for inference
@@ -1313,6 +1329,191 @@ def run_evaluate(card, model_f32, model_bf16, raw_f32, request):
               f"(host clock to synchronize, mean of 20 requests a window)  [{card}]")
 
 
+DETECT_IMAGES, DETECT_SIDE = 96, 352  # phase 9e's corpus: 96 images at 352 px (44 luma blocks)
+
+
+def write_detect_inputs(root: str, n: int = DETECT_IMAGES, side: int = DETECT_SIDE,
+                        seed: int = 95) -> tuple[str, str]:
+    """Phase 9e's inputs, written with NumPy alone (the card's machine has no
+    libjpeg): a VOC tree of `n` annotations (`Annotations/*.xml`, 1-4 boxes
+    in images of 200-500 px a side, `ImageSets/Main/trainval.txt`) and its
+    packed corpus at `side` px (a multiple of 16) in `data/packed.py`'s
+    files: Y ~ N(0, 100) and CbCr ~ N(0, 30) as int16, the XML boxes scaled
+    as `PackedDctDataset.create` scales them.  Returns (VOC root, corpus
+    stem)."""
+    from jpeg_detection_resnet_ssd_torch.data.datasets import VOC_CLASSES
+
+    rng = np.random.default_rng(seed)
+    voc, stem = os.path.join(root, "voc"), os.path.join(root, "pack", f"voc{side}")
+    for sub in ("Annotations", os.path.join("ImageSets", "Main"), "JPEGImages"):
+        os.makedirs(os.path.join(voc, sub), exist_ok=True)
+    os.makedirs(os.path.dirname(stem))
+    b8 = side // 8
+    gt = np.zeros((n, 64, 5), np.float32)
+    mask = np.zeros((n, 64), bool)
+    ids = [f"{i:06d}" for i in range(n)]
+    for i, image_id in enumerate(ids):
+        h, w = (int(v) for v in rng.integers(200, 501, 2))
+        k = int(rng.integers(1, 5))
+        x0, y0 = rng.integers(0, w - 40, k), rng.integers(0, h - 40, k)
+        x1 = np.minimum(x0 + rng.integers(20, w // 2, k), w)
+        y1 = np.minimum(y0 + rng.integers(20, h // 2, k), h)
+        cls = rng.integers(0, 20, k)
+        objs = "".join(
+            f"<object><name>{VOC_CLASSES[c]}</name><difficult>0</difficult><bndbox>"
+            f"<xmin>{xa}</xmin><ymin>{ya}</ymin><xmax>{xb}</xmax><ymax>{yb}</ymax></bndbox></object>"
+            for c, xa, ya, xb, yb in zip(cls, x0, y0, x1, y1))
+        with open(os.path.join(voc, "Annotations", image_id + ".xml"), "w") as f:
+            f.write(f"<annotation><size><width>{w}</width><height>{h}</height></size>{objs}"
+                    "</annotation>")
+        labels = np.stack([cls + 1, x0, y0, x1, y1], 1).astype(np.float32)
+        labels[:, [1, 3]] *= side / w
+        labels[:, [2, 4]] *= side / h
+        gt[i, :k], mask[i, :k] = labels, True
+    with open(os.path.join(voc, "ImageSets", "Main", "trainval.txt"), "w") as f:
+        f.write("\n".join(ids) + "\n")
+    np.save(stem + ".y.npy", rng.normal(0, 100, (n, b8, b8, 64)).astype(np.int16))
+    np.save(stem + ".cbcr.npy", rng.normal(0, 30, (n, b8 // 2, b8 // 2, 128)).astype(np.int16))
+    np.savez(stem + ".labels.npz", gt=gt, gt_mask=mask, image_ids=np.asarray(ids))
+    with open(stem + ".meta.json", "w") as f:
+        json.dump({"n": n, "img_height": side, "img_width": side, "max_gt": 64, "quality": 75}, f)
+    return voc, stem
+
+
+def run_cli(argv) -> tuple[str, dict]:
+    """`cli.main(argv)` in this process; returns the run dir and the last
+    history row that it prints."""
+    import contextlib
+    import io
+    import re
+
+    from jpeg_detection_resnet_ssd_torch.cli import main as cli
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        cli.main([str(a) for a in argv])
+    lines = out.getvalue().strip().splitlines()
+    return re.search(r"run dir: (\S+)", out.getvalue()).group(1), json.loads(lines[-1])
+
+
+def run_train_detect(card):
+    """Phase 9e: `python -m jpeg_detection_resnet_ssd_torch.cli train-detect
+    --device-augment --pack-cache` in this process, from a NumPy-written
+    corpus, at batch 32 bf16 with all three kernels; a restart; the fused
+    steps against single steps in float32 (C2); the data path's times."""
+    from jpeg_detection_resnet_ssd_torch.data.packed import PackedDctDataset, PackedDctPipeline
+    from jpeg_detection_resnet_ssd_torch.data.pipeline import prefetch_to_device
+    from jpeg_detection_resnet_ssd_torch.ops import bipartite_match as bm
+    from jpeg_detection_resnet_ssd_torch.ops import conv_grad, dct_flip
+    from jpeg_detection_resnet_ssd_torch.train import CheckpointManager, ExperimentConfig
+
+    print(f"[9e] the train-detect CLI from a packed corpus ({DETECT_IMAGES} images at "
+          f"{DETECT_SIDE} px): batch 32 bf16, --device-augment --pallas-wgrad")
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        voc, stem = write_detect_inputs(tmp)
+        print(f"    wrote the VOC tree and its corpus with NumPy in {time.perf_counter() - t0:.2f} s "
+              f"({sum(os.path.getsize(stem + e) for e in ('.y.npy', '.cbcr.npy')) / 1e6:.1f} MB)")
+        common = ["train-detect", "--voc-root", voc, "--device-augment", "--pack-cache", stem]
+        bf16 = common + ["--output-dir", os.path.join(tmp, "exp"), "--pallas-wgrad",
+                         "--batch-size", 32, "--steps-per-epoch", 3, "--epochs", 2]
+        runs = []
+        for extra in (["--max-steps", 3], ["--max-steps", 6, "--restart"]):
+            bm.LAUNCHES = conv_grad.LAUNCHES = dct_flip.LAUNCHES = 0
+            t0 = time.perf_counter()
+            run_dir, row = run_cli(bf16 + extra)
+            torch.cuda.synchronize()
+            launches = {"match": bm.LAUNCHES, "flip": dct_flip.LAUNCHES, "wgrad": conv_grad.LAUNCHES}
+            runs.append((run_dir, row, launches))
+            print(f"    {' '.join(map(str, extra))}: {time.perf_counter() - t0:.2f} s in cli.main; "
+                  f"row {json.dumps(row)}; kernel launches: matching {launches['match']}, flip "
+                  f"{launches['flip']}, filter gradient {launches['wgrad']}")
+            check(np.isfinite(row["total_loss"]) and row["step"] == 3 * len(runs),
+                  f"run {len(runs)}: the row's total_loss is finite at step {3 * len(runs)}")
+            check(launches == {"match": 3, "flip": 6, "wgrad": 72},
+                  "3 steps launched matching 1, flip 2 and filter gradient 24 times a step")
+        (run_dir, _, _), (run_dir2, row2, _) = runs
+        check(CheckpointManager(os.path.join(run_dir, "checkpoints")).all_steps() == [3, 6],
+              "checkpoints at steps 3 and 6")
+        check(run_dir2 == run_dir and row2["epoch"] == 1, "--restart reused the run dir for epoch 1")
+        warm_ms = row2["time_s"] * 1e3 / 3
+        print(f"    warm steps (the restart's epoch, 3 steps after a cold first run; fit's time_s, "
+              f"10 ms resolution): {warm_ms:.1f} ms a step, {1e3 / warm_ms:.3f} steps/s, "
+              f"{32e3 / warm_ms:.1f} images/s; first run's epoch with its cold first step "
+              f"{runs[0][1]['time_s'] * 1e3 / 3:.1f} ms a step  [{card}]")
+
+        # C2: --steps-per-call 3 trains what --steps-per-call 1 trains.  The
+        # card's backward is not bit-reproducible from run to run (atomic
+        # adds, e.g. in the overlapping max pool's backward), and the f32
+        # gradients at this random init amplify a last-bit difference; so
+        # the filter gradient runs on B4 (a fixed summation order), cuDNN
+        # takes deterministic algorithms, and a second --steps-per-call 1
+        # run measures what is left of the run-to-run spread.
+        cfg = os.path.join(tmp, "f32.json")
+        with open(cfg, "w") as f:
+            f.write(ExperimentConfig(compute_dtype="float32", model_kwargs={"n_classes": 20},
+                                     batch_size=2).to_json())
+        finals = []
+        torch.backends.cudnn.deterministic = True
+        for i, spc in enumerate((3, 1, 1)):
+            run_dir, row = run_cli(common + ["--config", cfg, "--output-dir", os.path.join(tmp, f"c2_{i}"),
+                                             "--pallas-wgrad", "--steps-per-epoch", 3, "--epochs", 1,
+                                             "--steps-per-call", spc])
+            state = torch.load(os.path.join(run_dir, "checkpoints", "ckpt_00000003.pt"),
+                               map_location="cpu", weights_only=True)["model"]
+            finals.append((row["total_loss"], state))
+        torch.backends.cudnn.deterministic = False
+
+        def differ(a, b):
+            (loss_a, p_a), (loss_b, p_b) = a, b
+            keys = [k for k, v in p_b.items() if v.is_floating_point()]
+            p_err = max(float((p_a[k] - p_b[k]).abs().max()) for k in keys)
+            p_max = max(float(p_b[k].abs().max()) for k in keys)
+            same = all(torch.equal(p_a[k], p_b[k]) for k in p_b)
+            return abs(loss_a - loss_b) / abs(loss_b), p_err, p_max, same
+
+        c2 = differ(finals[0], finals[1])
+        floor = differ(finals[2], finals[1])
+        for label, (loss_err, p_err, p_max, same) in (("--steps-per-call 3 vs 1", c2),
+                                                      ("1 vs 1 again (run-to-run)", floor)):
+            print(f"    C2, float32 at batch 2, TF32 off, B4, deterministic cuDNN, 3 steps, {label}: "
+                  f"total_loss relative diff {loss_err:.3g}; parameters max |diff| {p_err:.3g} of "
+                  f"max |p| {p_max:.4g}; bit-identical: {same}")
+        check(c2[0] <= 1e-4, "C2: the losses agree within 1e-4")
+        check(c2[1] <= 1e-3 * c2[2], "C2: the parameters agree within 1e-3 of the largest")
+
+        # The data path's host and copy times.
+        pipe = PackedDctPipeline(PackedDctDataset(stem), 32, seed=0, ship_dtype="int16")
+        batch_ms = []
+        for _ in range(5):
+            it = iter(pipe)
+            for _ in range(len(pipe)):
+                t0 = time.perf_counter()
+                batch = next(it)
+                batch_ms.append((time.perf_counter() - t0) * 1e3)
+        nbytes = sum(a.nbytes for a in (*batch["inputs"], batch["gt"], batch["gt_mask"]))
+        print(f"    PackedDctPipeline batch of 32 (gather + cast to int16), host: "
+              f"{float(np.median(batch_ms)):.4f} ms [{min(batch_ms):.4f}-{max(batch_ms):.4f}] "
+              f"(median of {len(batch_ms)}, host clock), {nbytes / 1e6:.3f} MB a batch  [{card}]")
+        arrays = [*batch["inputs"], batch["gt"], batch["gt_mask"]]
+        pinned = [torch.from_numpy(a).pin_memory() for a in arrays]
+        pin_ms, pin_spread = timed(lambda: [t.to("cuda", non_blocking=True) for t in pinned], 20)
+        page_ms, page_spread = timed(lambda: [torch.from_numpy(a).to("cuda") for a in arrays], 20)
+        staged_ms = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = sum(1 for _ in prefetch_to_device(iter(pipe), size=2, device="cuda"))
+            torch.cuda.synchronize()
+            staged_ms.append((time.perf_counter() - t0) * 1e3 / n)
+        print(f"    one batch to the card: from pinned memory {pin_ms:.4f} ms {pin_spread} "
+              f"({nbytes / pin_ms / 1e6:.2f} GB/s), from pageable memory {page_ms:.4f} ms "
+              f"{page_spread} ({nbytes / page_ms / 1e6:.2f} GB/s) (CUDA events, median of 5 "
+              f"windows of 20); prefetch_to_device over an epoch (gather, pin, copy on a side "
+              f"stream): {float(np.median(staged_ms)):.4f} ms a batch "
+              f"[{min(staged_ms):.4f}-{max(staged_ms):.4f}] (host clock)  [{card}]")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1357,6 +1558,7 @@ def main() -> int:
     train = run_training(dev, card, stress_sims, stress_mask)
     flip = run_augmented_training(dev, card, train["trainer"], train["batch"])
     run_evaluate(card, **served)
+    run_train_detect(card)
 
     print(f"[10] done in {time.perf_counter() - t_start:.1f} s")
     source = "jpeg_detection_resnet_ssd_torch/ops/csrc/{}.cu"

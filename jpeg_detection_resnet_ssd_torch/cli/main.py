@@ -1,5 +1,8 @@
-"""Command line of the PyTorch port: `evaluate`, `compute-map`, `infer`.
+"""Command line of the PyTorch port: `train-detect`, `evaluate`,
+`compute-map`, `infer`.
 
+    python -m jpeg_detection_resnet_ssd_torch.cli train-detect --voc-root VOC \\
+        [--device-augment --pack-cache STEM] [--pretrained-weights KERAS.h5]
     python -m jpeg_detection_resnet_ssd_torch.cli evaluate --run-dir RUN \\
         --voc-root VOC [--image-set test.txt] [--out-dir PRED]
     python -m jpeg_detection_resnet_ssd_torch.cli compute-map --pred-dir PRED \\
@@ -8,11 +11,14 @@
         [--weights KERAS.h5] [--output detections.png]
 
 The flags are those of the JAX package's `cli/main.py`, plus `--device`
-(default `cuda`; `evaluate` and `infer` raise without a card unless given
-`--device cpu`).  `compute-map` is NumPy only.  `--exported` serving
-artifacts raise `NotImplementedError` naming ROADMAP A14.  The JAX package's
-other subcommands are not ported yet: `train-detect` is ROADMAP A10b,
-`train-classify`, `evaluate-classify`, `export` and `bench` are A14.
+(default `cuda`; `train-detect`, `evaluate` and `infer` raise without a
+card unless given `--device cpu`).  `compute-map` is NumPy only.  What is
+not ported raises `NotImplementedError` naming its ROADMAP item: `--vgg` and
+the archis other than `ssd_custom` (A12), `--n-model-shards > 1` (A13),
+`--pretrained-weights` short names and URLs and `--exported` serving
+artifacts (A14), and configs with a bfloat16 momentum or `remat` (A15).
+The JAX package's other subcommands are not offered yet: `train-classify`,
+`evaluate-classify`, `export` and `bench` are A14.
 """
 
 from __future__ import annotations
@@ -21,6 +27,217 @@ import argparse
 import json
 import os
 import sys
+
+
+def _add_train_common(p):
+    p.add_argument("--archi", default=None, help="architecture variant")
+    p.add_argument("--restart", action="store_true")
+    p.add_argument("--config", default=None, help="path to a config JSON")
+    p.add_argument("--output-dir", default="experiments")
+    p.add_argument("--batch-size", type=int, default=None)
+    p.add_argument("--epochs", type=int, default=None)
+    p.add_argument("--steps-per-epoch", type=int, default=None)
+    p.add_argument("--max-steps", type=int, default=None)
+    p.add_argument("--pretrained-weights", default=None,
+                   help="local Keras H5 for by-name transfer")
+    p.add_argument("--n-model-shards", type=int, default=1)
+    p.add_argument("--num-workers", type=int, default=8)
+    p.add_argument("--steps-per-call", type=int, default=1,
+                   help="hand N optimization steps to one Trainer.train_steps "
+                        "call; the same steps and draws as single steps")
+    p.add_argument("--pallas-wgrad", action="store_true", default=None,
+                   help="route eligible 3x3 stride-1 convs' filter gradient "
+                        "through the CUDA kernel (ops/csrc/conv3x3_wgrad.cu); "
+                        "forward unchanged, dW summed in another order")
+    p.add_argument("--freeze-bn", action="store_true", default=None,
+                   help="train with BatchNorm frozen (eval-mode normalization, "
+                        "running statistics untouched)")
+    p.add_argument("--device", default="cuda",
+                   help="where training runs (default cuda; cpu for tests)")
+
+
+def _load_config(args, defaults):
+    from jpeg_detection_resnet_ssd_torch.train.config import ExperimentConfig
+
+    if args.config:
+        config = ExperimentConfig.load(args.config)
+    else:
+        config = ExperimentConfig(**defaults)
+    for field in ("batch_size", "epochs", "steps_per_epoch", "output_dir",
+                  "pretrained_weights", "n_model_shards", "num_workers",
+                  "pallas_wgrad", "freeze_bn"):
+        v = getattr(args, field, None)
+        if v is not None:
+            setattr(config, field, v)
+    config.restart = bool(args.restart)
+    return config
+
+
+def _resume_or_create_run_dir(config) -> str:
+    """`--restart` resumes the latest existing run of this workspace and
+    project (`fit` restores its checkpoint) instead of creating a fresh dir
+    whose empty checkpoints/ would train from scratch; a new run dir when
+    none exists."""
+    from jpeg_detection_resnet_ssd_torch.train.config import create_run_dir, find_latest_run
+
+    if config.restart:
+        existing = find_latest_run(config)
+        if existing is not None:
+            return existing
+        print("restart requested but no prior run found; starting fresh", file=sys.stderr)
+    return create_run_dir(config)
+
+
+def _maybe_import_pretrained(config):
+    """Flax-layout variables of the config's model with a local Keras H5's
+    layers imported by name (the others keep the seeded init `fit` would
+    give them), or None without `pretrained_weights`."""
+    if not config.pretrained_weights:
+        return None
+    spec = config.pretrained_weights
+    if not os.path.isfile(spec):
+        raise NotImplementedError(
+            f"--pretrained-weights {spec!r} is not a local file; short names and URLs "
+            "need compat/fetch.py, not ported to PyTorch yet (ROADMAP A14)"
+        )
+    import torch
+
+    from jpeg_detection_resnet_ssd_torch.compat import flax_variables, import_weights_by_name
+    from jpeg_detection_resnet_ssd_torch.models import build_model
+
+    module, _ = build_model(config.model, device="cpu",
+                            generator=torch.Generator().manual_seed(config.seed),
+                            **config.model_kwargs)
+    import_weights_by_name(module, spec, verbose=True)
+    return flax_variables(module)
+
+
+def _check_device_augment_flags(args, config):
+    """The DCT-domain device augmentation exists only for the dual-plane
+    'dct' input contract, and the packed corpus only for it; falling back to
+    the host pipeline would train another recipe than asked, so fail."""
+    device_augment = getattr(args, "device_augment", False)
+    pack_cache = getattr(args, "pack_cache", None)
+    if device_augment and config.input_format != "dct":
+        raise SystemExit(
+            f"--device-augment requires input_format='dct' (dual-plane "
+            f"Y+CbCr coefficients); this run resolves to input_format="
+            f"{config.input_format!r} (archi={args.archi!r}). Drop the flag "
+            f"to use the host augmentation pipeline, or pick a dct archi."
+        )
+    if pack_cache and not device_augment:
+        raise SystemExit(
+            "--pack-cache only takes effect together with --device-augment "
+            "(the packed corpus stores oversized DCT coefficients for the "
+            "device augmentation chain). Add --device-augment or drop "
+            "--pack-cache."
+        )
+
+
+def cmd_train_detect(args):
+    """Train the SSD detector on VOC trees: the host Caffe-SSD chain, or
+    with `--device-augment` the DCT-domain chain inside the train step
+    (from a packed corpus with `--pack-cache`).  Prints the run dir, then
+    the last epoch's history row as JSON."""
+    from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
+    from jpeg_detection_resnet_ssd_torch.data import DetectionDataset, DetectionPipeline
+    from jpeg_detection_resnet_ssd_torch.data.augment import SSDDataAugmentation
+    from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
+    from jpeg_detection_resnet_ssd_torch.train.loop import fit, make_validation_fn
+
+    archi = args.archi or "ssd_custom"
+    if args.vgg or archi != "ssd_custom":
+        raise NotImplementedError(
+            f"train-detect {'--vgg' if args.vgg else '--archi ' + archi}: only ssd_custom is "
+            "ported to PyTorch yet (ROADMAP A12)"
+        )
+    config = _load_config(
+        args,
+        dict(
+            model="ssd300_ssd_custom", task="detection", input_format="dct",
+            model_kwargs={"n_classes": 20},
+            learning_rate=1e-3,
+            l2_regularization=5e-4 if args.reg else 0.0,
+            batch_size=32, epochs=480, steps_per_epoch=1000,
+        ),
+    )
+    _check_device_augment_flags(args, config)
+    roots = args.voc_root
+    ds = DetectionDataset.from_voc(
+        [os.path.join(r, "JPEGImages") for r in roots],
+        [os.path.join(r, "ImageSets", "Main", "trainval.txt") for r in roots],
+        [os.path.join(r, "Annotations") for r in roots],
+    )
+    family = ssd_predictor_sizes("resnet_custom")
+    encoder = TargetEncoder(AnchorSpec(), family, n_classes=20, device=args.device)
+    augment_fn = None
+    if args.device_augment:
+        # The host ships 352-px (44-block) source maps; photometric, expand
+        # + min-IoU crop + resize, hflip and target encoding run in the
+        # train step on the card (ops/dct_detect_augment.py v3).
+        from jpeg_detection_resnet_ssd_torch.ops import make_dct_detection_augment_v3
+
+        encoder = TargetEncoder(AnchorSpec(img_height=304, img_width=304), family,
+                                n_classes=20, device=args.device)
+        augment_fn = make_dct_detection_augment_v3(
+            out_y_blocks=38,
+            expand_prob=0.5 if args.crop else 0.0,
+            scale_range=(0.3, 1.0) if args.crop else (1.0, 1.0),
+            photometric="pixel_hsv" if args.photometric == "pixel" else True,
+            requantize_quality=args.requantize,
+            device=args.device,
+        )
+        if args.pack_cache:
+            # Decode-once corpus: epochs read memmapped coefficients instead
+            # of decoding JPEGs (data/packed.py).
+            from jpeg_detection_resnet_ssd_torch.data.packed import (
+                PackedDctPipeline,
+                load_or_create,
+            )
+
+            packed = load_or_create(
+                args.pack_cache, ds, task="detection", img_height=352, img_width=352,
+                num_workers=config.num_workers,
+            )
+            pipe = PackedDctPipeline(packed, config.batch_size, train=True, seed=config.seed,
+                                     ship_dtype="int16")
+        else:
+            pipe = DetectionPipeline(
+                ds, config.batch_size, train=True, encoder=encoder, augmentation=None,
+                img_height=352, img_width=352, input_format=config.input_format,
+                num_workers=config.num_workers, seed=config.seed, device_encode=True,
+            )
+    else:
+        # Padded GT to the step, which encodes the targets on the device.
+        pipe = DetectionPipeline(
+            ds, config.batch_size, train=True, encoder=encoder,
+            augmentation=SSDDataAugmentation(crop=args.crop),
+            input_format=config.input_format, num_workers=config.num_workers,
+            seed=config.seed, device_encode=True,
+        )
+    run_dir = _resume_or_create_run_dir(config)
+    print(f"run dir: {run_dir}")
+    val_fn = None
+    if args.val_image_set:
+        root = roots[0]
+        val_ds = DetectionDataset.from_voc(
+            os.path.join(root, "JPEGImages"),
+            os.path.join(root, "ImageSets", "Main", args.val_image_set),
+            os.path.join(root, "Annotations"),
+        )
+        val_pipe = DetectionPipeline(
+            val_ds, config.batch_size, train=False, encoder=encoder, augmentation=None,
+            input_format=config.input_format, num_workers=config.num_workers,
+            device_encode=True, drop_remainder=True,
+        )
+        val_fn = make_validation_fn(None, val_pipe)
+    _, history = fit(
+        config, pipe, val_fn=val_fn, run_dir=run_dir, max_steps=args.max_steps,
+        init_variables=_maybe_import_pretrained(config), target_encoder=encoder,
+        augment_fn=augment_fn, steps_per_call=args.steps_per_call, device=args.device,
+    )
+    print(json.dumps(history[-1] if history else {}))
+
 
 def _exported_not_ported(args):
     if args.exported:
@@ -178,6 +395,33 @@ def cmd_infer(args):
 def build_parser():
     p = argparse.ArgumentParser(prog="python -m jpeg_detection_resnet_ssd_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
+
+    td = sub.add_parser("train-detect")
+    _add_train_common(td)
+    td.add_argument("--voc-root", nargs="+", required=True)
+    td.add_argument("--crop", dest="crop", action="store_true", default=True)
+    td.add_argument("--no_crop", dest="crop", action="store_false")
+    td.add_argument("--reg", dest="reg", action="store_true", default=True)
+    td.add_argument("--no_reg", dest="reg", action="store_false")
+    td.add_argument("--vgg", action="store_true",
+                    help="VGG-DCT backbone (not ported: ROADMAP A12)")
+    td.add_argument("--device-augment", action="store_true",
+                    help="DCT-domain augmentation chain (photometric + expand + "
+                         "min-IoU crop + flip) and target encoding inside the "
+                         "train step, on the card")
+    td.add_argument("--pack-cache", default=None,
+                    help="with --device-augment: stem path for a decode-once "
+                         "memmapped DCT corpus (created if absent)")
+    td.add_argument("--photometric", default="dct", choices=["dct", "pixel"],
+                    help="with --device-augment: 'dct' = coefficient-domain "
+                         "photometric; 'pixel' = the reference's HSV semantics "
+                         "on reconstructed pixels (ops/pixel_photometric.py)")
+    td.add_argument("--requantize", default=None, type=int, metavar="Q",
+                    help="with --device-augment: snap each augmented view's "
+                         "coefficients to the JPEG quality-Q grid (ops/jpeg_quant.py)")
+    td.add_argument("--val-image-set", default=None,
+                    help="ImageSets/Main/<file> for per-epoch validation loss")
+    td.set_defaults(fn=cmd_train_detect)
 
     ev = sub.add_parser("evaluate")
     ev.add_argument("--run-dir", required=True)

@@ -3,7 +3,7 @@
 `compat/surgery.py`, `compat/h5_export.py` and `compat/fetch.py` of the JAX
 package are ROADMAP A14."""
 
-from jpeg_detection_resnet_ssd_torch.compat.flax_bridge import load_flax_variables
+from jpeg_detection_resnet_ssd_torch.compat.flax_bridge import flax_variables, load_flax_variables
 from jpeg_detection_resnet_ssd_torch.compat.h5_import import (
     import_weights_by_name,
     list_h5_layers,
@@ -11,6 +11,7 @@ from jpeg_detection_resnet_ssd_torch.compat.h5_import import (
 )
 
 __all__ = [
+    "flax_variables",
     "import_weights_by_name",
     "list_h5_layers",
     "load_flax_variables",

@@ -12,7 +12,9 @@ flax path `("head", "fc7_mbox_loc", "kernel")` is the state_dict key
   batch_stats/var                     running_var
 
 The caller converts the pytree to NumPy (`jax.tree_util.tree_map(np.asarray,
-variables)`); this module imports no jax.
+variables)`); this module imports no jax.  `flax_variables` goes the other
+way, so weights imported into a module (`compat.import_weights_by_name`)
+can be handed to `train.fit(init_variables=...)`.
 """
 
 from __future__ import annotations
@@ -78,3 +80,29 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
                 raise ValueError(f"{key}: module has {tuple(target.shape)}, flax gives {arr.shape}")
             target.copy_(torch.from_numpy(np.ascontiguousarray(arr)))
     return module
+
+
+def flax_variables(module: nn.Module) -> dict:
+    """`module`'s parameters and BatchNorm statistics as a flax-layout
+    `{"params", "batch_stats"}` NumPy pytree: the inverse of
+    `load_flax_variables` (a 4-dim `weight` is a conv kernel, any other
+    `weight` a BatchNorm scale)."""
+    out: dict = {"params": {}, "batch_stats": {}}
+    for key, tensor in module.state_dict().items():
+        *scope, name = key.split(".")
+        if name == "num_batches_tracked":
+            continue
+        arr = tensor.detach().cpu().numpy().copy()
+        if name in ("running_mean", "running_var"):
+            collection, leaf = "batch_stats", name[len("running_"):]
+        elif name == "weight":
+            collection, leaf = "params", "kernel" if arr.ndim == 4 else "scale"
+            if arr.ndim == 4:
+                arr = arr.transpose(2, 3, 1, 0)
+        else:
+            collection, leaf = "params", name
+        node = out[collection]
+        for part in scope:
+            node = node.setdefault(part, {})
+        node[leaf] = arr
+    return out

@@ -1,8 +1,9 @@
-"""Datasets, the JPEG -> DCT input transform and the detection pipeline.
+"""Datasets, the JPEG -> DCT input transform, the detection pipeline with
+its host augmentation chain, and the packed DCT corpus.
 
-The names of the JAX package's `data/__init__.py` that are ported; the
-classification pipeline, `prefetch_to_device` and the packed DCT corpus are
-ROADMAP A10b.  Nothing here imports PIL, cv2 or h5py at module level.
+The names of the JAX package's `data/__init__.py` that are ported;
+`ClassificationPipeline` is ROADMAP A12.  Nothing here imports PIL, cv2 or
+h5py at module level.
 """
 
 from jpeg_detection_resnet_ssd_torch.data.datasets import (
@@ -18,16 +19,20 @@ from jpeg_detection_resnet_ssd_torch.data.dct_convert import (
     rgb_to_dct_tensors,
     split_cbcr,
 )
-from jpeg_detection_resnet_ssd_torch.data.pipeline import DetectionPipeline
+from jpeg_detection_resnet_ssd_torch.data.packed import PackedDctDataset, PackedDctPipeline
+from jpeg_detection_resnet_ssd_torch.data.pipeline import DetectionPipeline, prefetch_to_device
 
 __all__ = [
     "VOC_CLASSES",
     "DetectionDataset",
     "DetectionPipeline",
     "ImageFolderDataset",
+    "PackedDctDataset",
+    "PackedDctPipeline",
     "parse_coco_json",
     "parse_detection_csv",
     "parse_voc_xml",
+    "prefetch_to_device",
     "rgb_to_dct_image",
     "rgb_to_dct_tensors",
     "split_cbcr",

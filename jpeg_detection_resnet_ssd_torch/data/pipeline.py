@@ -1,4 +1,4 @@
-"""Host-side input pipeline: threaded decode -> resize -> DCT -> batches.
+"""Host-side input pipeline: threaded decode -> augment -> DCT -> batches.
 
 Counterpart of the JAX package's `data/pipeline.py` for detection, with the
 same seeded epoch order and per-item generators, so both packages yield equal
@@ -6,8 +6,11 @@ batches from one dataset:
 
   * per-epoch shuffle from `np.random.default_rng((seed, epoch))` when
     training, dataset order otherwise;
-  * a thread pool runs the per-image work (PIL decode, resize, JPEG
-    re-encode, native DCT decode); libjpeg, cv2 and ctypes release the GIL.
+  * a thread pool runs the per-image work (PIL decode, the augmentation
+    chain, JPEG re-encode, native DCT decode); libjpeg, cv2 and ctypes
+    release the GIL;
+  * `prefetch_to_device` stages the next batches on the card from pinned
+    memory while the current step runs.
 
 Input formats:
   'dct'        -> (y, cbcr)
@@ -16,25 +19,28 @@ Input formats:
   'dct_image'  -> (H, W, 3) DCT plane (jpegdecoder layout)
   'dct_255'    -> (H, W, 3) DCT plane rescaled to 0-255
 
-Not ported yet (ROADMAP A10b): the host training augmentation
-(`augmentation="default"` with `train=True`), `prefetch_to_device`,
-`ClassificationPipeline` and `DeviceDCTAugmentedPipeline`.  PIL is imported
-inside the functions that decode, so the package imports without it.
+Not ported yet (ROADMAP A12): `ClassificationPipeline` and
+`DeviceDCTAugmentedPipeline`.  PIL is imported inside the functions that
+decode, so the package imports without it.
 """
 
 from __future__ import annotations
 
 import io
+import queue
+import threading
 from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Callable
 
 import numpy as np
+import torch
 
 from jpeg_detection_resnet_ssd_torch.data import augment as aug
 from jpeg_detection_resnet_ssd_torch.data.dct_convert import (
     rgb_to_dct_image,
     rgb_to_dct_tensors,
 )
+from jpeg_detection_resnet_ssd_torch.utils.device import resolve_device
 
 
 def _load_rgb(path: str) -> np.ndarray:
@@ -136,9 +142,10 @@ class DetectionPipeline(_BasePipeline):
     'difficult'}, where the inverters map predicted boxes back to original
     image coordinates.
 
-    `augmentation`: "default" is the Caffe-SSD host chain when training (not
-    ported yet: ROADMAP A10b) and none otherwise; None resizes only; a
-    callable `(image, labels, rng) -> (image, labels)` is used as it is.
+    `augmentation`: "default" is the Caffe-SSD host chain
+    (`augment.SSDDataAugmentation(img_height, img_width)`) when training and
+    none otherwise; None resizes only; a callable `(image, labels, rng) ->
+    (image, labels)` is used as it is.
     """
 
     def __init__(self, dataset, batch_size: int, *, train: bool,
@@ -146,18 +153,15 @@ class DetectionPipeline(_BasePipeline):
                  input_format: str = "dct", img_height: int = 300,
                  img_width: int = 300, max_gt: int = 64,
                  device_encode: bool = False, **kw):
-        if augmentation == "default" and train:
-            raise NotImplementedError(
-                "the host SSD augmentation chain (SSDDataAugmentation) is not ported "
-                "to PyTorch yet (ROADMAP A10b); pass augmentation=None or a callable"
-            )
         super().__init__(dataset, batch_size, train=train,
                          input_format=input_format, **kw)
         self.encoder = encoder
         self.device_encode = device_encode
         self.img_height, self.img_width = img_height, img_width
         self.max_gt = max_gt
-        self.augmentation = None if augmentation == "default" else augmentation
+        if augmentation == "default":
+            augmentation = aug.SSDDataAugmentation(img_height, img_width) if train else None
+        self.augmentation = augmentation
 
     def _prepare_item(self, index):
         rec = self.dataset[int(index)]
@@ -199,3 +203,85 @@ class DetectionPipeline(_BasePipeline):
             batch["inverters"] = [it[3] for it in items]
             batch["difficult"] = [it[5] for it in items]
         return batch
+
+
+def _map_leaves(fn, tree, leaf_type):
+    """`tree` with every `leaf_type` leaf replaced by `fn(leaf)`, through
+    dicts, lists and tuples; other leaves as they are."""
+    if isinstance(tree, leaf_type):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: _map_leaves(fn, v, leaf_type) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_leaves(fn, v, leaf_type) for v in tree)
+    return tree
+
+
+def prefetch_to_device(iterator, size: int = 2, device: str | torch.device | None = None):
+    """Yield `iterator`'s batches with their NumPy arrays as tensors on
+    `device`, staged by a background thread up to `size` batches ahead.
+
+    On a CUDA device the thread copies each array into pinned memory and on
+    to the card with `non_blocking=True` on a side stream, and records an
+    event; the consumer's stream waits for that event before the batch is
+    handed out, so the copies overlap the step that runs meanwhile.  On the
+    CPU the arrays become tensors that share their memory.  `device` None
+    means CUDA and raises without a card.  An exception in the iterator is
+    raised in the consumer; a consumer that stops early stops the thread.
+    """
+    return _prefetch(iterator, max(int(size), 1), resolve_device(device))
+
+
+def _prefetch(iterator, size: int, dev: torch.device):
+    q: queue.Queue = queue.Queue(maxsize=size)
+    stop = threading.Event()
+    end = object()
+    side = torch.cuda.Stream(dev) if dev.type == "cuda" else None
+
+    def stage(x):
+        t = torch.from_numpy(x)
+        if side is None:
+            return t
+        with torch.cuda.stream(side):
+            return t.pin_memory().to(dev, non_blocking=True)
+
+    def put(item) -> bool:
+        while not stop.is_set():
+            try:
+                q.put(item, timeout=0.1)
+                return True
+            except queue.Full:
+                continue
+        return False
+
+    def producer():
+        try:
+            for batch in iterator:
+                staged = _map_leaves(stage, batch, np.ndarray)
+                event = side.record_event() if side is not None else None
+                if not put((staged, event, None)):
+                    return
+        except Exception as exc:  # handed to the consumer, which raises it
+            put((None, None, exc))
+            return
+        put((end, None, None))
+
+    thread = threading.Thread(target=producer, daemon=True)
+    thread.start()
+    try:
+        while True:
+            batch, event, exc = q.get()
+            if exc is not None:
+                raise exc
+            if batch is end:
+                return
+            if event is not None:
+                stream = torch.cuda.current_stream(dev)
+                stream.wait_event(event)
+                # the tensors were allocated on the side stream: tell the
+                # caching allocator that the consumer's stream uses them
+                _map_leaves(lambda t: t.record_stream(stream), batch, torch.Tensor)
+            yield batch
+    finally:
+        stop.set()
+        thread.join()

@@ -8,7 +8,6 @@ from jpeg_detection_resnet_ssd_torch.train.loop import (
     build_trainer,
     fit,
     make_validation_fn,
-    step_generator,
 )
 from jpeg_detection_resnet_ssd_torch.train.metrics import MetricWriter
 from jpeg_detection_resnet_ssd_torch.train import schedules
@@ -16,7 +15,7 @@ from jpeg_detection_resnet_ssd_torch.train.schedules import (
     keras_inverse_time_decay,
     warmup_linear_scaling,
 )
-from jpeg_detection_resnet_ssd_torch.train.trainer import Trainer, detection_loss_fn
+from jpeg_detection_resnet_ssd_torch.train.trainer import Trainer, detection_loss_fn, step_generator
 
 __all__ = [
     "CSVLogger",

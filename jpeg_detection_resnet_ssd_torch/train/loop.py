@@ -70,24 +70,6 @@ def build_optimizer(config: ExperimentConfig, params, n_replicas: int = 1) -> to
     )
 
 
-_MASK64 = (1 << 64) - 1
-
-
-def step_generator(seed: int, step: int) -> torch.Generator:
-    """The CPU generator of train step `step` in a run seeded `seed`.
-
-    The port's counterpart of the JAX package's per-step key
-    `fold_in(PRNGKey(seed), step)`: a pure function of the pair, so a run
-    resumed at step s draws what an uninterrupted run draws at step s.  JAX's
-    keys cannot be reproduced in PyTorch, so the rule is the port's own: the
-    generator is seeded with splitmix64 of the 64-bit word
-    `(seed << 32) + step` (both taken modulo 2**64)."""
-    z = (((seed << 32) + step) + 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return torch.Generator().manual_seed(z ^ (z >> 31))
-
-
 def build_trainer(config: ExperimentConfig, target_encoder=None, augment_fn=None,
                   device: str | torch.device | None = None):
     """(Trainer, module, example_inputs) for `config` on `device` (None means
@@ -134,6 +116,7 @@ def fit(
     augment_fn=None,
     save_every: int = 1,
     device: str | torch.device | None = None,
+    steps_per_call: int = 1,
 ) -> tuple[Trainer, list[dict]]:
     """Train per `config`; returns (trainer, one history row per epoch).
 
@@ -143,11 +126,16 @@ def fit(
     NumPy variables (`compat.load_flax_variables`).  With `run_dir`, each
     epoch appends a row to `results/results.csv` and every `save_every`-th
     epoch (and the last) writes a checkpoint; `config.restart` resumes from
-    the latest one.  The loss is read (a synchronisation) only every
-    `log_every` steps and at the end, where a non-finite value raises
-    `NaNLossError`.  Step s hands the augment hook
+    the latest one.  The loss is read (a synchronisation) only when the
+    step count crosses a multiple of `log_every` and at the end, where a
+    non-finite value raises `NaNLossError`.  Step s hands the augment hook
     `step_generator(config.seed + 1, s)`, so a restarted run draws what an
     uninterrupted one draws.
+
+    `steps_per_call` groups that many batches into one `Trainer.train_steps`
+    call, with the JAX package's rules: a group never straddles an epoch or
+    `max_steps`, the remainder runs as single steps, and the steps draw what
+    single steps draw, so the run is the same whatever the group size.
     """
     trainer, module, _ = build_trainer(config, target_encoder, augment_fn, device)
     if init_variables is not None:
@@ -162,23 +150,50 @@ def fit(
             ckpt.restore(trainer)
             start_epoch = trainer.step // max(config.steps_per_epoch, 1)
 
+    seed = config.seed + 1
+    spc = max(int(steps_per_call), 1)
     history = []
     steps_done = 0
     for epoch in range(start_epoch, config.epochs):
         t0 = time.time()
         epoch_metrics: dict[str, list] = {}
-        for batch in train_pipeline:
-            metrics = trainer.train_step(batch, step_generator(config.seed + 1, trainer.step))
-            steps_done += 1
-            last = bool(max_steps) and steps_done >= max_steps
-            if steps_done % log_every == 0 or last:
-                loss = float(metrics["total_loss"])
+
+        def run(unit):
+            """Steps on `unit`'s batches; NaN guard on log_every crossings."""
+            nonlocal steps_done
+            prev_done = steps_done
+            metrics = trainer.train_steps(unit, seed)
+            steps_done += len(unit)
+            if (steps_done // log_every != prev_done // log_every
+                    or (max_steps and steps_done >= max_steps)):
+                loss = float(metrics["total_loss"][-1])
                 if not math.isfinite(loss):
                     raise NaNLossError(f"non-finite loss at step {steps_done}")
             for k, v in metrics.items():
                 epoch_metrics.setdefault(k, []).append(v)
-            if last or steps_done % config.steps_per_epoch == 0:
+
+        pending: list = []
+        for batch in train_pipeline:
+            # A group never straddles the epoch or max_steps boundary (both
+            # count single steps); the remainder runs as single steps.
+            boundary = config.steps_per_epoch - steps_done % config.steps_per_epoch
+            if max_steps:
+                boundary = min(boundary, max_steps - steps_done)
+            if spc > 1 and boundary >= spc:
+                pending.append(batch)
+                if len(pending) < spc:
+                    continue
+                unit, pending = pending, []
+            else:
+                unit = [batch]
+            run(unit)
+            if (max_steps and steps_done >= max_steps) or steps_done % config.steps_per_epoch == 0:
                 break
+        # A pipeline that ends inside a group: its batches run as single steps.
+        for batch in pending:
+            if max_steps and steps_done >= max_steps:
+                break
+            run([batch])
         row: dict[str, Any] = {
             "epoch": epoch,
             "step": trainer.step,
@@ -186,7 +201,7 @@ def fit(
             "lr": _schedule_value(config, trainer.step),
         }
         for k, v in epoch_metrics.items():
-            row[k] = float(torch.stack(v).double().mean())
+            row[k] = float(torch.cat(v).double().mean())
         if math.isnan(row.get("total_loss", 0.0)):
             raise NaNLossError(f"non-finite epoch loss at epoch {epoch}")
         if val_fn is not None:
@@ -203,21 +218,25 @@ def fit(
     return trainer, history
 
 
-def make_validation_fn(trainer: Trainer, val_pipeline):
+def make_validation_fn(trainer: Trainer | None, val_pipeline):
     """Per-epoch validation hook for `fit(val_fn=...)`: the mean SSD loss of
     the eval-mode model over `val_pipeline` (batches with "targets", or
-    padded GT and a trainer with a target encoder)."""
-    eval_apply = trainer.eval_step()
+    padded GT and a trainer with a target encoder).
+
+    The hook evaluates the trainer it is called with, as the JAX package's
+    hook evaluates the state it is handed; so it can be made before `fit`
+    builds its trainer (`trainer` is the JAX signature's and may be None)."""
     ssd_loss = SSDLoss()
 
-    def val_fn(_trainer) -> dict:
+    def val_fn(current: Trainer) -> dict:
+        eval_apply = current.eval_step()
         losses = []
         for batch in val_pipeline:
             if "targets" in batch:
-                targets = torch.as_tensor(batch["targets"], device=trainer.device)
-            elif "gt" in batch and trainer.target_encoder is not None:
+                targets = torch.as_tensor(batch["targets"], device=current.device)
+            elif "gt" in batch and current.target_encoder is not None:
                 with torch.no_grad():
-                    targets = trainer.target_encoder(batch["gt"], batch["gt_mask"])
+                    targets = current.target_encoder(batch["gt"], batch["gt_mask"])
             else:
                 raise NotImplementedError(
                     "classification validation is not ported to PyTorch yet (ROADMAP A12)"

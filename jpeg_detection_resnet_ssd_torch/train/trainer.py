@@ -11,7 +11,8 @@ in place, in the JAX step's order:
 
 `pallas_wgrad` scopes `models.layers.pallas_wgrad` to the step's forward,
 so two trainers in one process can differ.  `ssd_custom` has no dropout; the generator passed to a
-step reaches only the augment hook.
+step reaches only the augment hook.  Step s of a run seeded `seed` draws
+from `step_generator(seed, s)`, whether it runs alone or in `train_steps`.
 """
 
 from __future__ import annotations
@@ -25,6 +26,24 @@ from torch import nn
 from jpeg_detection_resnet_ssd_torch.losses import SSDLoss, l2_regularization_loss
 from jpeg_detection_resnet_ssd_torch.models import layers
 from jpeg_detection_resnet_ssd_torch.utils.device import resolve_device
+
+
+_MASK64 = (1 << 64) - 1
+
+
+def step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of train step `step` in a run seeded `seed`.
+
+    The port's counterpart of the JAX package's per-step key
+    `fold_in(PRNGKey(seed), step)`: a pure function of the pair, so a run
+    resumed at step s draws what an uninterrupted run draws at step s.  JAX's
+    keys cannot be reproduced in PyTorch, so the rule is the port's own: the
+    generator is seeded with splitmix64 of the 64-bit word
+    `(seed << 32) + step` (both taken modulo 2**64)."""
+    z = (((seed << 32) + step) + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return torch.Generator().manual_seed(z ^ (z >> 31))
 
 
 def detection_loss_fn(ssd_loss: SSDLoss = SSDLoss(), l2_scale: float = 5e-4):
@@ -101,10 +120,14 @@ class Trainer:
         self.step += 1
         return {**{k: v.detach() for k, v in metrics.items()}, "total_loss": loss.detach()}
 
-    def train_steps(self, batches, generator: torch.Generator | None = None) -> dict:
+    def train_steps(self, batches, seed: int) -> dict:
         """K sequential steps (the JAX package fuses them into one program;
-        the math is the same); each metric comes back with shape (K,)."""
-        rows = [self.train_step(b, generator) for b in batches]
+        the math is the same); each metric comes back with shape (K,).
+
+        Each step draws from `step_generator(seed, s)`, with s read from
+        `self.step` as the step starts, as the JAX step folds its key from
+        `state.step`: K steps here draw what K `train_step` calls draw."""
+        rows = [self.train_step(b, step_generator(seed, self.step)) for b in batches]
         return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
     def eval_step(self):

@@ -125,7 +125,7 @@ def test_serving_artifacts_name_their_roadmap_item(argv):
         port_cli.main(argv)
 
 
-@pytest.mark.parametrize("command", ["train-detect", "train-classify", "export", "bench"])
+@pytest.mark.parametrize("command", ["train-classify", "export", "bench"])
 def test_unported_subcommands_are_not_offered(command, capsys):
     with pytest.raises(SystemExit):
         port_cli.main([command])

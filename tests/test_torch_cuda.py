@@ -18,6 +18,7 @@ from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
 from jpeg_detection_resnet_ssd_torch.ops import _draws, batched_nms, bipartite_match, conv_grad, dct_flip
 from jpeg_detection_resnet_ssd_torch.ops.dct_detect_augment import make_dct_detection_augment_v3
 
+from chip_smoke import write_detect_inputs
 from torch_cases import (
     BORDERS, N_CLASSES, assert_augment_matches, augment_source, gt_batch, nms_problems,
     raw_predictions, tie_sims,
@@ -286,3 +287,23 @@ def test_evaluator_kernel_and_plain_nms_give_identical_lists(cuda):
     assert (launches_k, launches_r) == (3, 0)
     assert preds_k == preds_r and sum(map(len, preds_k)) > 100
     assert map_k == map_r and aps_k == aps_r
+
+
+@pytest.mark.parametrize("ship_dtype", ["int16", "float32"])
+def test_packed_pipeline_through_prefetch_lands_on_the_card(cuda, tmp_path, ship_dtype):
+    """A NumPy-written packed corpus, its batches staged by
+    `prefetch_to_device` from pinned memory on a side stream: on the card
+    they equal the host arrays."""
+    from jpeg_detection_resnet_ssd_torch.data.packed import PackedDctDataset, PackedDctPipeline
+    from jpeg_detection_resnet_ssd_torch.data.pipeline import prefetch_to_device
+
+    _, stem = write_detect_inputs(str(tmp_path), n=7, side=96, seed=3)
+    corpus = PackedDctDataset(stem)
+    want = list(PackedDctPipeline(corpus, 2, seed=4, ship_dtype=ship_dtype))
+    got = list(prefetch_to_device(PackedDctPipeline(corpus, 2, seed=4, ship_dtype=ship_dtype),
+                                  size=2, device=cuda))
+    assert len(got) == len(want) == 3
+    for g, w in zip(got, want):
+        for a, b in zip((*g["inputs"], g["gt"], g["gt_mask"]), (*w["inputs"], w["gt"], w["gt_mask"])):
+            assert a.is_cuda
+            np.testing.assert_array_equal(a.cpu().numpy(), b)

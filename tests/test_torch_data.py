@@ -25,27 +25,9 @@ from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
 from jpeg_detection_resnet_ssd_torch.data import augment, datasets, pipeline
 from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
 
-from torch_cases import write_voc_tree
+from torch_cases import assert_same, write_voc_tree
 
 torch.set_num_threads(1)
-
-
-def assert_same(got, ref):
-    """Equal nested records/batches: arrays identical in dtype, shape and
-    value; everything else ==."""
-    if isinstance(ref, np.ndarray):
-        assert isinstance(got, np.ndarray) and got.dtype == ref.dtype
-        np.testing.assert_array_equal(got, ref)
-    elif isinstance(ref, dict):
-        assert sorted(got) == sorted(ref)
-        for k in ref:
-            assert_same(got[k], ref[k])
-    elif isinstance(ref, (list, tuple)):
-        assert type(got) is type(ref) and len(got) == len(ref)
-        for g, r in zip(got, ref):
-            assert_same(g, r)
-    else:
-        assert got == ref
 
 
 @pytest.fixture(scope="module")
@@ -285,10 +267,18 @@ def test_encoder_pipeline_targets_match_jax(voc):
 
 
 def test_default_training_augmentation_names_its_roadmap_item(voc):
+    """The default training augmentation is the host SSD chain, built as the
+    JAX package builds it (its draws are held to JAX's in
+    `test_torch_host_augment.py`); evaluation has none."""
     _, _, paths = voc
     ds = data.DetectionDataset.from_voc(*paths)
-    with pytest.raises(NotImplementedError, match="A10b"):
-        data.DetectionPipeline(ds, 2, train=True)
+    got = data.DetectionPipeline(ds, 2, train=True, img_height=320, img_width=288).augmentation
+    ref = jax_data.DetectionPipeline(ds, 2, train=True, img_height=320, img_width=288).augmentation
+    assert isinstance(got, augment.SSDDataAugmentation)
+    assert isinstance(got.crop, augment.SSDRandomCrop) and isinstance(ref.crop, jax_aug.SSDRandomCrop)
+    assert (got.resize.height, got.resize.width) == (ref.resize.height, ref.resize.width) == (320, 288)
+    assert got.expand.background == ref.expand.background
+    assert (got.flip.dim, got.flip.prob) == (ref.flip.dim, ref.flip.prob)
     assert data.DetectionPipeline(ds, 2, train=False).augmentation is None
 
 

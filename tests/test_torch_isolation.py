@@ -40,9 +40,10 @@ def import_every_module_without(blocked):
     `blocked` cannot be imported; fails if one is needed or if anything of
     the JAX package is imported."""
     mods = [port.__name__, *port_modules()]
-    assert len(mods) >= 54
+    assert len(mods) >= 55
     assert {"jpeg_detection_resnet_ssd_torch.cli.main", "jpeg_detection_resnet_ssd_torch.dctjpeg",
-            "jpeg_detection_resnet_ssd_torch.data.pipeline"} <= set(mods)
+            "jpeg_detection_resnet_ssd_torch.data.pipeline", "jpeg_detection_resnet_ssd_torch.data.packed",
+            "jpeg_detection_resnet_ssd_torch.data.augment"} <= set(mods)
     code = (
         "import sys\n"
         f"for name in {blocked!r}:\n"
@@ -50,6 +51,15 @@ def import_every_module_without(blocked):
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        # building the host chains and parsing train-detect need none of them
+        "from jpeg_detection_resnet_ssd_torch.data import augment\n"
+        "for chain in ('SSDDataAugmentation', 'SSDDataAugmentationNoCrop',\n"
+        "              'DataAugmentationConstantInputSize', 'DataAugmentationVariableInputSize',\n"
+        "              'DataAugmentationSatellite'):\n"
+        "    getattr(augment, chain)()\n"
+        "from jpeg_detection_resnet_ssd_torch.cli import main\n"
+        "args = main.build_parser().parse_args(['train-detect', '--voc-root', 'v', '--device-augment'])\n"
+        "assert args.fn is main.cmd_train_detect\n"
         "bad = [m for m in sys.modules if m.startswith('jpeg_detection_resnet_ssd_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"

@@ -185,3 +185,70 @@ def test_what_is_not_ported_names_its_roadmap_item():
             build_trainer(cfg, device="cpu")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         build_optimizer(ExperimentConfig(momentum_dtype="bfloat16"), [torch.zeros(1)])
+
+
+def _noise_hook(draws):
+    """An augment hook whose draws change the step: seeded noise on the luma
+    plane; `draws` records each step's first value."""
+
+    def augment(batch, generator):
+        noise = torch.randn(batch["inputs"][0].shape, generator=generator)
+        draws.append(float(noise.reshape(-1)[0]))
+        return {**batch, "inputs": (torch.as_tensor(batch["inputs"][0]) + 10 * noise,
+                                    batch["inputs"][1])}
+
+    return augment
+
+
+def test_grouped_fit_equals_single_step_fit():
+    """C2: `fit(steps_per_call=3)` draws and trains exactly as
+    `fit(steps_per_call=1)`.  Epochs of 5 steps and max_steps 9: a group of
+    3, a 2-step tail before the epoch boundary, a group of 3, then one step
+    to max_steps."""
+
+    def run(spc):
+        draws = []
+        cfg = ExperimentConfig(compute_dtype="float32", batch_size=1, epochs=2, steps_per_epoch=5)
+        trainer, history = fit(cfg, _batches(5), target_encoder=_encoder(),
+                               augment_fn=_noise_hook(draws), max_steps=9,
+                               steps_per_call=spc, log_every=2, device="cpu")
+        return trainer, history, draws
+
+    single, single_hist, single_draws = run(1)
+    grouped, grouped_hist, grouped_draws = run(3)
+    assert grouped_draws == single_draws and len(set(single_draws)) == 9
+    assert grouped.step == single.step == 9
+    for row_s, row_g in zip(single_hist, grouped_hist, strict=True):
+        assert {k: v for k, v in row_s.items() if k != "time_s"} == {
+            k: v for k, v in row_g.items() if k != "time_s"}
+    for (name, p_s), (_, p_g) in zip(single.model.state_dict().items(),
+                                     grouped.model.state_dict().items()):
+        assert torch.equal(p_s, p_g), name
+
+
+def test_grouped_fit_nan_guard():
+    cfg = ExperimentConfig(compute_dtype="float32", batch_size=1, epochs=1, steps_per_epoch=3)
+    batch = _batches(1)[0]
+    batch["inputs"] = (np.full_like(batch["inputs"][0], np.nan), batch["inputs"][1])
+    with pytest.raises(NaNLossError, match="step 3"):
+        fit(cfg, [batch] * 3, target_encoder=_encoder(), steps_per_call=3, log_every=3,
+            device="cpu")
+
+
+def test_train_steps_draw_what_single_steps_draw():
+    """Step s of a `train_steps` call draws from `step_generator(seed, s)`."""
+    class Model(torch.nn.Linear):
+        def forward(self, inputs):
+            return super().forward(inputs[0])
+
+    draws = []
+    model = Model(2, 1)
+    trainer = Trainer(model, lambda m, out, b: (out.sum() * 0, {}),
+                      torch.optim.SGD(model.parameters(), lr=0.1),
+                      augment_fn=lambda b, g: draws.append(float(torch.rand((), generator=g))) or b,
+                      device="cpu")
+    trainer.step = 5
+    batch = {"inputs": (np.ones((1, 2), np.float32),), "targets": np.zeros(1, np.float32)}
+    trainer.train_steps([batch] * 3, seed=9)
+    assert trainer.step == 8
+    assert draws == [float(torch.rand((), generator=step_generator(9, s))) for s in (5, 6, 7)]

@@ -170,3 +170,21 @@ def write_voc_tree(root, n_images=4, seed=0, image_set="test.txt"):
             + "".join(objs) + "</annotation>")
     (Path(root) / "ImageSets" / "Main" / image_set).write_text("\n".join(ids) + "\n")
     return ids
+
+
+def assert_same(got, ref):
+    """Equal nested records/batches: arrays identical in dtype, shape and
+    value; everything else ==."""
+    if isinstance(ref, np.ndarray):
+        assert isinstance(got, np.ndarray) and got.dtype == ref.dtype
+        np.testing.assert_array_equal(got, ref)
+    elif isinstance(ref, dict):
+        assert sorted(got) == sorted(ref)
+        for k in ref:
+            assert_same(got[k], ref[k])
+    elif isinstance(ref, (list, tuple)):
+        assert type(got) is type(ref) and len(got) == len(ref)
+        for g, r in zip(got, ref):
+            assert_same(g, r)
+    else:
+        assert got == ref
