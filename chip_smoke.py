@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; one card, nvcc
 
-Five paths, each at the full width of `ssd300_ssd_custom`:
+Six paths, the first five at the full width of `ssd300_ssd_custom`:
   * inference: `build_model` -> forward on seeded DCT planes ->
     `make_inference_fn` (candidate selection, batched greedy NMS on the CUDA
     kernel, global top-200) -> (B, 200, 6) detections;
@@ -24,7 +24,14 @@ Five paths, each at the full width of `ssd300_ssd_custom`:
   * `train-detect`: `cli.main(["train-detect", "--device-augment",
     "--pack-cache", ...])` in this process, from a VOC tree and its packed
     corpus written with NumPy, at batch 32 bf16 with all three training
-    kernels, then `--restart`.
+    kernels, then `--restart`;
+  * classification: `cli.main(["train-classify", "--device-augment",
+    "--pack-cache", ..., "--pallas-wgrad"])` in this process, training
+    `resnet50_dct_late_concat_rfa_thinner` at full width and depth with
+    1000 classes from a NumPy-written 256-px corpus at batch 64 bf16, the
+    v2 random-resized crop and flip (the flip kernel) in the step and every
+    3x3 conv's filter gradient on the CUDA kernel, then `--restart`; and the
+    forward of every ResNet-50 of the registry.
     The card's machine has no libjpeg, so no step decodes a JPEG here.
 
 Phases (any failure exits non-zero):
@@ -121,7 +128,27 @@ Phases (any failure exits non-zero):
      (the card's run-to-run spread); warm steps/s, a `PackedDctPipeline`
      batch's host time, one batch's copy from pinned and from pageable
      memory, and `prefetch_to_device` per batch;
- 10. the `kernels` JSON line, the card line, and the final JSON line.
+ 9f. classification: the forward of the 7 DCT ResNet-50s and resnet50_rgb
+     at batch 2 in float32 (TF32 off; BatchNorm calibrated on the batch),
+     card against the port's CPU path within 1e-3 of the largest logit; the
+     filter-gradient kernel at the 6 shapes of the DCT step and resnet50_rgb's
+     56x56 and 7x7x512 shapes at batch 64, bf16 and float32, within 1e-4 and
+     bit-identical from call to call, then timed per shape against cuDNN and
+     the bound; the v2 augment (batch 64, 32-block sources) on the card
+     against the CPU within 1e-5, its two flips bit for bit, and the flip
+     kernel timed at those shapes; one float32 step at batch 2 card vs CPU
+     (loss 1e-4, fc1000 gradient 1e-3); the bf16 step at batch 64 through
+     the v2 augment in three arms (B4; cuDNN's dW; B4 with remat and the
+     bf16 momentum): peak memory per arm, launches a step, step ms and
+     images/s in three rotating rounds, a profiler window; `train-classify
+     --device-augment --pack-cache --pallas-wgrad` for 3 steps (launches
+     reset just before and read just after: flip 2, filter gradient 18 a
+     step) and `--restart` to 6; `ClassificationEvaluator` over the
+     calibrated model, top-1/top-5 checked against its logits, images/s in
+     float32 and bf16;
+ 10. the `kernels` JSON line (B3's and B4's entries with a `classification`
+     part: the train-classify run's launches and the per-step times at the
+     classification shapes), the card line, and the final JSON line.
 
 Weights are the port's seeded init (torch.Generator seeded 0); for inference
 the BatchNorm running statistics are calibrated on the batch-32 request (one
@@ -1514,6 +1541,332 @@ def run_train_detect(card):
               f"[{min(staged_ms):.4f}-{max(staged_ms):.4f}] (host clock)  [{card}]")
 
 
+# Phase 9f: resnet50_dct_late_concat_rfa_thinner at 224 px (28-block Y maps).
+CLS_MODEL = "resnet50_dct_late_concat_rfa_thinner"
+CLS_IMAGES, CLS_SIDE, CLS_BATCH, CLS_CLASSES = 192, 256, 64, 8  # phase 9f's corpus: 256 px sources
+# The 18 filter gradients of one step of CLS_MODEL: (H, C, K, count); and
+# resnet50_rgb's 3x3 convs at maps the DCT stem does not reach.
+CLS_WGRAD_SHAPES = (
+    (28, 256, 256, 1), (28, 128, 128, 4), (14, 256, 256, 1), (14, 128, 128, 3),
+    (7, 256, 256, 6), (4, 512, 512, 3),
+)
+RGB_WGRAD_SHAPES = ((56, 64, 64, 3), (7, 512, 512, 3))
+
+
+def cls_planes(rng, b, blocks=28, split=False, dtype=np.float32):
+    """Seeded classification planes as NumPy arrays: Y ~ N(0, 100) with
+    `blocks` luma blocks a side, CbCr ~ N(0, 30) (as Cb and Cr with `split`)."""
+    y = rng.normal(0, 100, (b, blocks, blocks, 64)).astype(dtype)
+    cbcr = rng.normal(0, 30, (b, blocks // 2, blocks // 2, 128)).astype(dtype)
+    return (y, cbcr[..., :64].copy(), cbcr[..., 64:].copy()) if split else (y, cbcr)
+
+
+def write_classify_inputs(root: str, n: int = CLS_IMAGES, side: int = CLS_SIDE,
+                          n_classes: int = CLS_CLASSES, seed: int = 97) -> tuple[str, str]:
+    """Phase 9f's inputs, written with NumPy alone (the card's machine has no
+    libjpeg): an ImageFolder of `n` empty `.jpeg` names in `n_classes` class
+    dirs (`ImageFolderDataset` lists them; nothing decodes them) and its
+    packed classification corpus at `side` px in `data/packed.py`'s files:
+    Y ~ N(0, 100) and CbCr ~ N(0, 30) as int16, the labels in the
+    dataset's order.  Returns (ImageFolder root, corpus stem)."""
+    rng = np.random.default_rng(seed)
+    folder, stem = os.path.join(root, "imagenet"), os.path.join(root, "pack", f"cls{side}")
+    os.makedirs(os.path.dirname(stem))
+    per = n // n_classes
+    labels = np.repeat(np.arange(n_classes, dtype=np.int32), per)
+    ids = []
+    for c in range(n_classes):
+        os.makedirs(os.path.join(folder, f"c{c:03d}"))
+        for j in range(per):
+            open(os.path.join(folder, f"c{c:03d}", f"{j:04d}.jpeg"), "w").close()
+            ids.append(f"{j:04d}.jpeg")
+    y, cbcr = cls_planes(rng, len(labels), side // 8, dtype=np.int16)
+    np.save(stem + ".y.npy", y)
+    np.save(stem + ".cbcr.npy", cbcr)
+    np.savez(stem + ".labels.npz", labels=labels, image_ids=np.asarray(ids))
+    with open(stem + ".meta.json", "w") as f:
+        json.dump({"n": len(labels), "img_size": side, "quality": 75, "task": "classification"}, f)
+    return folder, stem
+
+
+def run_classification(dev, card):
+    """Phase 9f: the classification path of the port on the card."""
+    import copy
+
+    from jpeg_detection_resnet_ssd_torch.eval import ClassificationEvaluator
+    from jpeg_detection_resnet_ssd_torch.models import CLASSIFICATION_ARCHIS, build_model
+    from jpeg_detection_resnet_ssd_torch.ops import _draws, conv_grad, dct_augment, dct_flip
+    from jpeg_detection_resnet_ssd_torch.train import CheckpointManager, ExperimentConfig, build_trainer
+
+    print(f"[9f] classification: {CLS_MODEL} and the other ResNet-50s at 224 px, 1000 classes")
+    # 1. Forward parity, float32 (TF32 off), batch 2, BatchNorm calibrated on
+    # the batch (identity statistics would overflow on N(0, 100) planes).
+    rng = np.random.default_rng(90)
+    calibrated = None
+    for name in [f"resnet50_dct_{a}" for a in CLASSIFICATION_ARCHIS] + ["resnet50_rgb"]:
+        cpu_model, example = build_model(name, device="cpu")
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        inputs = example(rng)
+        on_dev = (tuple(torch.from_numpy(a).to(dev) for a in inputs) if isinstance(inputs, tuple)
+                  else torch.from_numpy(inputs).to(dev))
+        calibrate_batch_norm(gpu_model, on_dev)
+        cpu_model.load_state_dict(gpu_model.state_dict())
+        with torch.no_grad():
+            got = gpu_model(on_dev).cpu()
+            ref = cpu_model(inputs)
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        check(got.shape == (2, 1000) and bool(torch.isfinite(got).all()) and err <= 1e-3 * scale,
+              f"{name}: card forward = CPU forward, max |diff| {err:.3g} <= 1e-3 * {scale:.4g}")
+        if name == CLS_MODEL:
+            calibrated = gpu_model
+        del cpu_model
+
+    # 2. B4 at the classification shapes, batch 64: bf16 and float32 against
+    # the plain version, two bf16 calls bit-identical; then timed per shape
+    # queued behind a device sleep (warm in the L2) against cuDNN's filter
+    # gradient and the bound.
+    gen = torch.Generator().manual_seed(91)
+    worst = 0.0
+    for h, c, k, count in CLS_WGRAD_SHAPES + RGB_WGRAD_SHAPES:
+        x32 = torch.randn(CLS_BATCH, h, h, c, generator=gen).to(dev)
+        dy32 = torch.randn(CLS_BATCH, h, h, k, generator=gen).to(dev)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dy = x32.to(dtype), dy32.to(dtype)
+            got = conv_grad.conv3x3_filter_grad(x, dy)
+            torch.cuda.synchronize()
+            ref = conv_grad.conv3x3_filter_grad_reference(x, dy)
+            err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+            worst = max(worst, err)
+            again = conv_grad.conv3x3_filter_grad(x, dy)
+            check(err <= WGRAD_TOL * scale and torch.equal(again.view(torch.int32), got.view(torch.int32)),
+                  f"dW {str(dtype)[6:]:8s} B={CLS_BATCH} {h}x{h} {c}->{k} (x{count}): max |diff| "
+                  f"{err:.3g} <= {WGRAD_TOL:g} * {scale:.4g}; a second call gives the same bits")
+    print(f"    filter gradient per conv, bf16, batch {CLS_BATCH}, queued behind a device sleep, "
+          "inputs warm in the L2")
+    wsum = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    wby = {"operations": 0, "bytes": 0}
+    for h, c, k, count in CLS_WGRAD_SHAPES + RGB_WGRAD_SHAPES:
+        x = torch.randn(CLS_BATCH, h, h, c, generator=gen).to(dev, torch.bfloat16)
+        dy = torch.randn(CLS_BATCH, h, h, k, generator=gen).to(dev, torch.bfloat16)
+        w = torch.zeros(k, c, 3, 3, device=dev, dtype=torch.bfloat16)
+        xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        plan = conv_grad.tiling_plan(CLS_BATCH, h, h, c, k)
+        kern, kern_s = queued_ms(lambda _: conv_grad.conv3x3_filter_grad(x, dy), x, iters=50, cold=False)
+        lib, lib_s = queued_ms(lambda _: torch.ops.aten.convolution_backward(
+            dyn, xn, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, False]), x,
+            iters=50, cold=False)
+        plain, _ = timed(lambda: conv_grad.conv3x3_filter_grad_reference(x, dy), 3, warmup_s=0.1)
+        bound, by = wgrad_bound(CLS_BATCH * h * h, c, k, torch.bfloat16)
+        on_path = (h, c, k, count) in CLS_WGRAD_SHAPES
+        if on_path:
+            for key, v in (("ms", kern), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bound)):
+                wsum[key] += count * v
+            wby[by] += count
+        tflops = 2 * 9 * CLS_BATCH * h * h * c * k / (kern * 1e-3) / 1e12
+        print(f"    dW bf16 B={CLS_BATCH} {h:2d}x{h:<2d} {c:3d}->{k:<3d} x{count}"
+              f"{'' if on_path else ' (resnet50_rgb)'}: kernel {kern:.5f} ms {kern_s} = {tflops:.1f} "
+              f"TFLOP/s, {100 * bound / kern:.1f}% of the bound {bound:.5f} ({by}); cuDNN {lib:.5f} "
+              f"{lib_s}; kernel/cuDNN {kern / lib:.2f}; plain {plain:.4f}; box {plan.w_box}x"
+              f"{plan.rows}x{plan.images}, tile {conv_grad.BLOCK_C}x{plan.n_tile}, {plan.splits} "
+              f"splits  [{card}]")
+    print(f"    dW per classification step (18 convs): kernel {wsum['ms']:.4f} ms, "
+          f"{100 * wsum['bound_ms'] / wsum['ms']:.1f}% of the bound {wsum['bound_ms']:.4f} ms; cuDNN "
+          f"{wsum['library_ms']:.4f} ms; plain {wsum['plain_ms']:.4f} ms  [{card}]")
+
+    # 3. B3 inside the v2 augment: each flip the augment asks for, kernel
+    # against the plain version bit for bit; and the card's apply against the
+    # CPU's on one set of host draws, within 1e-4 of the largest value: the
+    # resize's two batched einsums each sum 256 products per output in
+    # another order on the card (TF32 off), which moved the 64 images'
+    # coefficients by up to 3.5e-5 of the largest on an H100 80GB HBM3 at 700 W.
+    aug = dct_augment.make_dct_classification_augment_v2(28)
+    aug_cpu = dct_augment.make_dct_classification_augment_v2(28, device="cpu")
+    src = {"inputs": cls_planes(rng, CLS_BATCH, CLS_SIDE // 8, dtype=np.int16),
+           "labels": rng.integers(0, 1000, CLS_BATCH).astype(np.int32)}
+    draws = aug_cpu.sample(CLS_BATCH, CLS_SIDE // 8, CLS_SIDE // 8, torch.Generator().manual_seed(92))
+    flips, real_flip = [], dct_augment.dct_flip_horizontal
+
+    def recording_flip(t, *a, **kw):
+        out = real_flip(t, *a, **kw)
+        flips.append((t, out))
+        return out
+
+    dct_augment.dct_flip_horizontal = recording_flip
+    try:
+        before = dct_flip.LAUNCHES
+        out = aug.apply(aug.to_device(src), _draws.to_device(draws, dev))
+        torch.cuda.synchronize()
+        launches = dct_flip.LAUNCHES - before
+    finally:
+        dct_augment.dct_flip_horizontal = real_flip
+    ref = aug_cpu.apply(aug_cpu.to_device(src), draws)
+    errs = [float((a.cpu() - b).abs().max()) / float(b.abs().max())
+            for a, b in zip(out["inputs"], ref["inputs"])]
+    check(launches == 2 and max(errs) <= 1e-4,
+          f"v2 augment, batch {CLS_BATCH} from {CLS_SIDE // 8} blocks: card = CPU within "
+          f"{max(errs):.3g} of the largest value; {launches} flip launches")
+    flip_err = 0.0
+    for t, got in flips:
+        want = dct_flip.dct_flip_horizontal_reference(t)
+        flip_err = max(flip_err, float((got - want).abs().max()))
+        check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+              f"flip {tuple(t.shape)} in the augment: kernel equals its plain version bit for bit")
+    fsum = {"ms": 0.0, "plain_ms": 0.0, "bound_ms": 0.0}
+    for x in out["inputs"]:
+        k_ms, k_spread = queued_ms(lambda t: dct_flip.dct_flip_horizontal(t, impl="kernel"), x)
+        p_ms, _ = queued_ms(dct_flip.dct_flip_horizontal_reference, x)
+        b_ms, b_by = flip_bound(x)
+        for key, v in (("ms", k_ms), ("plain_ms", p_ms), ("bound_ms", b_ms)):
+            fsum[key] += v
+        print(f"    flip {tuple(x.shape)} float32, from main memory: kernel {k_ms:.5f} ms {k_spread} "
+              f"({100 * b_ms / k_ms:.1f}% of the bound {b_ms:.5f}, {b_by}); plain {p_ms:.5f} ms  [{card}]")
+
+    # 4. One float32 step at batch 2: card (kernels, TF32 off) vs the CPU.
+    cfg32 = ExperimentConfig(model=CLS_MODEL, task="classification", compute_dtype="float32",
+                             pallas_wgrad=True, model_kwargs={"num_classes": 1000}, learning_rate=0.1,
+                             nesterov=True, l2_regularization=0.0)
+    small = {"inputs": cls_planes(rng, 2), "labels": np.asarray([3, 998], np.int32)}
+    gpu, gpu_model, _ = build_trainer(cfg32)
+    cpu, cpu_model, _ = build_trainer(cfg32, device="cpu")
+    cpu_model.load_state_dict(gpu_model.state_dict())
+    conv_grad.LAUNCHES = 0
+    m_gpu = gpu.train_step(small)
+    torch.cuda.synchronize()
+    n_wgrad = conv_grad.LAUNCHES
+    m_cpu = cpu.train_step(small)
+    a, b = float(m_gpu["loss"]), float(m_cpu["loss"])
+    check(abs(a - b) <= 1e-4 * abs(b) and n_wgrad == 18,
+          f"float32 step: loss card {a:.6f} vs CPU {b:.6f} (rtol 1e-4); {n_wgrad} filter gradients on B4")
+    # The gradient is read from the momentum buffer, which the first step
+    # sets to it: torch's multi-tensor Nesterov SGD on the card adds the
+    # buffer into .grad in place.
+    g = gpu.optimizer.state[gpu_model.fc1000.weight]["momentum_buffer"].cpu()
+    r = cpu.optimizer.state[cpu_model.fc1000.weight]["momentum_buffer"]
+    err = float((g - r).abs().max() / r.abs().max())
+    check(err <= 1e-3, f"fc1000 gradient within {err:.3g} <= 1e-3 of max |ref|")
+    del gpu, cpu, gpu_model, cpu_model
+
+    # 5. The bf16 step at batch 64 through the v2 augment, three arms: B4;
+    # cuDNN's dW; B4 with remat and the bf16 momentum.  Peak memory per arm
+    # (the arm built and stepped alone above what was allocated before it),
+    # then step times in rotating rounds.
+    batch = {"inputs": tuple(torch.from_numpy(a).to(dev) for a in src["inputs"]),
+             "labels": src["labels"]}
+    arms, memory = {}, {}
+    for arm, kw in (("B4", dict(pallas_wgrad=True)), ("cuDNN dW", dict(pallas_wgrad=False)),
+                    ("B4 + remat + bf16 momentum", dict(pallas_wgrad=True, remat=True,
+                                                        momentum_dtype="bfloat16"))):
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        cfg = ExperimentConfig(model=CLS_MODEL, task="classification", compute_dtype="bfloat16",
+                               model_kwargs={"num_classes": 1000}, learning_rate=0.1, nesterov=True,
+                               l2_regularization=0.0, batch_size=CLS_BATCH, **kw)
+        trainer, _, _ = build_trainer(cfg, augment_fn=aug)
+        step_gen = torch.Generator().manual_seed(93)
+        for _ in range(2):
+            trainer.train_step(batch, step_gen)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        conv_grad.LAUNCHES = dct_flip.LAUNCHES = 0
+        m = trainer.train_step(batch, step_gen)
+        torch.cuda.synchronize()
+        memory[arm] = (torch.cuda.max_memory_allocated() - base) / 2**20
+        print(f"    {arm}: loss {float(m['loss']):.4f}; peak memory {memory[arm]:.1f} MiB "
+              f"(torch.cuda.max_memory_allocated over a step, above what was allocated before the "
+              f"arm was built); launches a step: B4 {conv_grad.LAUNCHES}, B3 {dct_flip.LAUNCHES}  [{card}]")
+        check(np.isfinite(float(m["loss"])) and dct_flip.LAUNCHES == 2
+              and conv_grad.LAUNCHES == (0 if arm == "cuDNN dW" else 18),
+              f"{arm}: loss finite; 2 flips and {0 if arm == 'cuDNN dW' else 18} filter gradients "
+              "on the kernels a step")
+        arms[arm] = (trainer, step_gen)
+    lever = "B4 + remat + bf16 momentum"
+    check(memory[lever] < memory["B4"],
+          f"remat + bf16 momentum lower the peak: {memory[lever]:.1f} < {memory['B4']:.1f} MiB")
+    names = list(arms)
+    step_ms = {arm: [] for arm in names}
+    for rnd in range(3):  # each arm goes first once
+        for arm in names[rnd:] + names[:rnd]:
+            trainer, step_gen = arms[arm]
+            step_ms[arm].append(timed(lambda: trainer.train_step(batch, step_gen), 2, warmup_s=0.5))
+    for arm in names:
+        ms = [m for m, _ in step_ms[arm]]
+        print(f"    classification step, batch {CLS_BATCH} bf16 with the v2 augment, {arm}: "
+              + ", ".join(f"{m:.3f} ms {spread}" for m, spread in step_ms[arm])
+              + f" -> {CLS_BATCH * 1e3 / np.mean(ms):.1f} images/s  [{card}]")
+    trainer, step_gen = arms["B4"]
+    profile_steps(lambda: trainer.train_step(batch, step_gen), card,
+                  float(np.median([m for m, _ in step_ms["B4"]])),
+                  label="classification steps (B4, v2 augment)")
+    del arms, trainer
+
+    # 6. train-classify in this process from a NumPy-written packed corpus.
+    with tempfile.TemporaryDirectory() as tmp:
+        folder, stem = write_classify_inputs(tmp)
+        common = ["train-classify", "--train-dir", folder, "--device-augment", "--pack-cache", stem,
+                  "--pallas-wgrad", "--batch-size", CLS_BATCH, "--steps-per-epoch", 3, "--epochs", 2,
+                  "--output-dir", os.path.join(tmp, "exp")]
+        runs = []
+        for extra in (["--max-steps", 3], ["--max-steps", 6, "--restart"]):
+            conv_grad.LAUNCHES = dct_flip.LAUNCHES = 0
+            t0 = time.perf_counter()
+            run_dir, row = run_cli(common + extra)
+            torch.cuda.synchronize()
+            launches = {"flip": dct_flip.LAUNCHES, "wgrad": conv_grad.LAUNCHES}
+            runs.append((run_dir, row, launches))
+            print(f"    {' '.join(map(str, extra))}: {time.perf_counter() - t0:.2f} s in cli.main; row "
+                  f"{json.dumps(row)}; kernel launches: flip {launches['flip']}, filter gradient "
+                  f"{launches['wgrad']}")
+            check(np.isfinite(row["loss"]) and row["step"] == 3 * len(runs),
+                  f"train-classify run {len(runs)}: loss finite at step {3 * len(runs)}")
+            check(launches == {"flip": 6, "wgrad": 54},
+                  "3 steps launched flip 2 and filter gradient 18 times a step")
+        (run_dir, _, _), (run_dir2, row2, _) = runs
+        check(CheckpointManager(os.path.join(run_dir, "checkpoints")).all_steps() == [3, 6]
+              and run_dir2 == run_dir and row2["epoch"] == 1,
+              "checkpoints at steps 3 and 6; --restart reused the run dir for epoch 1")
+        warm_ms = row2["time_s"] * 1e3 / 3
+        print(f"    train-classify warm steps (the restart's epoch; fit's time_s, 10 ms resolution): "
+              f"{warm_ms:.1f} ms a step, {CLS_BATCH * 1e3 / warm_ms:.1f} images/s  [{card}]")
+
+    # 7. ClassificationEvaluator over the calibrated float32 model: half the
+    # labels are the model's own top-1, so top-1 is known from the logits.
+    eval_rng = np.random.default_rng(94)
+    batches = []
+    for _ in range(4):
+        inputs = cls_planes(eval_rng, CLS_BATCH)
+        with torch.no_grad():
+            logits = calibrated(inputs).float().cpu()
+        labels = eval_rng.integers(0, 1000, CLS_BATCH).astype(np.int32)
+        labels[::2] = logits.argmax(-1).numpy()[::2]
+        batches.append({"inputs": inputs, "labels": labels, "logits": logits})
+    want1 = np.mean([float((b["logits"].argmax(-1).numpy() == b["labels"]).mean()) for b in batches])
+    want5 = np.mean([float((b["logits"].topk(5).indices.numpy() == b["labels"][:, None]).any(-1).mean())
+                     for b in batches])
+    for dtype in (torch.float32, torch.bfloat16):
+        calibrated.dtype = dtype
+        ev = ClassificationEvaluator(calibrated, batches)
+        res, run_s = None, []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = ev()
+            run_s.append(time.perf_counter() - t0)
+        if dtype == torch.float32:
+            check(res["count"] == 4 * CLS_BATCH and abs(res["top1"] - want1) < 1e-12
+                  and abs(res["top5"] - want5) < 1e-12,
+                  f"evaluator: top-1 {res['top1']:.4f}, top-5 {res['top5']:.4f} as the logits give")
+        print(f"    ClassificationEvaluator, {4 * CLS_BATCH} images at batch {CLS_BATCH}, "
+              f"{str(dtype)[6:]}: top-1 {res['top1']:.4f}, top-5 {res['top5']:.4f}; "
+              f"{4 * CLS_BATCH / float(np.median(run_s)):.1f} images/s (median of 3 runs, host clock)"
+              f"  [{card}]")
+    # launches: the 3-step train-classify run (the main path); the rest are
+    # per classification step (18 convs, 2 flips at batch 64)
+    return ({"launches": runs[0][2]["wgrad"], "max_abs_err": worst, **wsum,
+             "bound_by": max(wby, key=wby.get), "shapes": [list(t) for t in CLS_WGRAD_SHAPES]},
+            {"launches": runs[0][2]["flip"], "max_abs_err": flip_err, **fsum, "bound_by": "bytes",
+             "library_ms": None, "shapes": [list(x.shape) for x in out["inputs"]]})
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1559,6 +1912,7 @@ def main() -> int:
     flip = run_augmented_training(dev, card, train["trainer"], train["batch"])
     run_evaluate(card, **served)
     run_train_detect(card)
+    cls_wgrad, cls_flip = run_classification(dev, card)
 
     print(f"[10] done in {time.perf_counter() - t_start:.1f} s")
     source = "jpeg_detection_resnet_ssd_torch/ops/csrc/{}.cu"
@@ -1571,10 +1925,12 @@ def main() -> int:
          "max_abs_err": match_err, "library_ms": None, **train["match"]},
         {"name": "conv3x3_filter_grad", "route": "cuda", "source": source.format("conv3x3_wgrad"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_conv_grad.py:128",
-         "max_abs_err": max(wgrad_err, train["wgrad_step_err"]), **train["wgrad"]},
+         "max_abs_err": max(wgrad_err, train["wgrad_step_err"], cls_wgrad["max_abs_err"]),
+         **train["wgrad"], "classification": cls_wgrad},
         {"name": "dct_flip_horizontal", "route": "cuda", "source": source.format("dct_flip"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/dct_augment.py:75",
-         "max_abs_err": flip_err, "library_ms": None, **flip},
+         "max_abs_err": max(flip_err, cls_flip["max_abs_err"]), "library_ms": None, **flip,
+         "classification": cls_flip},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,10 @@
-"""Command line of the PyTorch port: `train-detect`, `evaluate`,
-`compute-map`, `infer`.
+"""Command line of the PyTorch port: `train-classify`, `train-detect`,
+`evaluate`, `evaluate-classify`, `compute-map`, `infer`.
 
+    python -m jpeg_detection_resnet_ssd_torch.cli train-classify --train-dir IMAGENET \\
+        [--archi ARCHI|rgb] [--device-augment --pack-cache STEM] [--pallas-wgrad]
+    python -m jpeg_detection_resnet_ssd_torch.cli evaluate-classify --run-dir RUN \\
+        --val-dir IMAGENET_VAL
     python -m jpeg_detection_resnet_ssd_torch.cli train-detect --voc-root VOC \\
         [--device-augment --pack-cache STEM] [--pretrained-weights KERAS.h5]
     python -m jpeg_detection_resnet_ssd_torch.cli evaluate --run-dir RUN \\
@@ -11,14 +15,13 @@
         [--weights KERAS.h5] [--output detections.png]
 
 The flags are those of the JAX package's `cli/main.py`, plus `--device`
-(default `cuda`; `train-detect`, `evaluate` and `infer` raise without a
-card unless given `--device cpu`).  `compute-map` is NumPy only.  What is
-not ported raises `NotImplementedError` naming its ROADMAP item: `--vgg` and
-the archis other than `ssd_custom` (A12), `--n-model-shards > 1` (A13),
-`--pretrained-weights` short names and URLs and `--exported` serving
-artifacts (A14), and configs with a bfloat16 momentum or `remat` (A15).
-The JAX package's other subcommands are not offered yet: `train-classify`,
-`evaluate-classify`, `export` and `bench` are A14.
+(default `cuda`; every subcommand but `compute-map`, which is NumPy only,
+raises without a card unless given `--device cpu`).  What is not ported
+raises `NotImplementedError` naming its ROADMAP item: `train-detect --vgg`
+and its archis other than `ssd_custom` (A12b), `--n-model-shards > 1`
+(A13), `--pretrained-weights` short names and URLs and `--exported` serving
+artifacts (A14).  The JAX package's `export` and `bench` subcommands are
+not offered yet (A14).
 """
 
 from __future__ import annotations
@@ -134,6 +137,68 @@ def _check_device_augment_flags(args, config):
         )
 
 
+def cmd_train_classify(args):
+    """Train a ResNet-50 classifier (the DCT stem of `--archi`, or `rgb`) on
+    an ImageFolder tree: the host training view, or with `--device-augment`
+    256-px source maps that the v2 random-resized crop, flip and
+    photometric op turn into 224-px views in the train step (from a packed
+    corpus with `--pack-cache`).  Prints the run dir, then the last epoch's
+    history row as JSON."""
+    from jpeg_detection_resnet_ssd_torch.data import ClassificationPipeline, ImageFolderDataset
+    from jpeg_detection_resnet_ssd_torch.train.loop import fit
+
+    archi = args.archi or "late_concat_rfa_thinner"
+    model = "resnet50_rgb" if archi == "rgb" else f"resnet50_dct_{archi}"
+    input_format = "rgb" if archi == "rgb" else "dct_deconv" if archi == "deconv" else "dct"
+    config = _load_config(
+        args,
+        dict(
+            model=model, task="classification", input_format=input_format,
+            model_kwargs={"num_classes": 1000},
+            learning_rate=0.1, nesterov=True, lr_decay=1e-4,
+            l2_regularization=0.0, batch_size=256, epochs=120,
+            steps_per_epoch=5000, warmup_epochs=5,
+        ),
+    )
+    ds = ImageFolderDataset(args.train_dir, args.class_index_json)
+    _check_device_augment_flags(args, config)
+    augment_fn = None
+    if args.device_augment:
+        from jpeg_detection_resnet_ssd_torch.ops import make_dct_classification_augment_v2
+
+        augment_fn = make_dct_classification_augment_v2(out_y_blocks=28, device=args.device)
+        if args.pack_cache:
+            from jpeg_detection_resnet_ssd_torch.data.packed import (
+                PackedDctPipeline,
+                load_or_create,
+            )
+
+            packed = load_or_create(args.pack_cache, ds, task="classification", img_size=256,
+                                    num_workers=config.num_workers)
+            pipe = PackedDctPipeline(packed, config.batch_size, train=True, seed=config.seed,
+                                     ship_dtype="int16")
+        else:
+            # The host ships the deterministic 256-px view (epoch shuffling
+            # stays on); crops and flips happen in the step.
+            pipe = ClassificationPipeline(
+                ds, config.batch_size, train=True, host_augment=False, input_format="dct",
+                image_size=256, num_workers=config.num_workers, seed=config.seed,
+            )
+    else:
+        pipe = ClassificationPipeline(
+            ds, config.batch_size, train=True, input_format=config.input_format,
+            num_workers=config.num_workers, seed=config.seed,
+        )
+    run_dir = _resume_or_create_run_dir(config)
+    print(f"run dir: {run_dir}")
+    _, history = fit(
+        config, pipe, run_dir=run_dir, max_steps=args.max_steps,
+        init_variables=_maybe_import_pretrained(config), augment_fn=augment_fn,
+        steps_per_call=args.steps_per_call, device=args.device,
+    )
+    print(json.dumps(history[-1] if history else {}))
+
+
 def cmd_train_detect(args):
     """Train the SSD detector on VOC trees: the host Caffe-SSD chain, or
     with `--device-augment` the DCT-domain chain inside the train step
@@ -149,7 +214,7 @@ def cmd_train_detect(args):
     if args.vgg or archi != "ssd_custom":
         raise NotImplementedError(
             f"train-detect {'--vgg' if args.vgg else '--archi ' + archi}: only ssd_custom is "
-            "ported to PyTorch yet (ROADMAP A12)"
+            "ported to PyTorch yet (ROADMAP A12b)"
         )
     config = _load_config(
         args,
@@ -307,6 +372,34 @@ def cmd_evaluate(args):
         print(json.dumps({"mAP": mean_ap, "AP": aps[1:]}))
 
 
+def cmd_evaluate_classify(args):
+    """Top-1/top-5 of a classification run's latest checkpoint on an
+    ImageFolder tree (the evaluation view, whole batches)."""
+    import torch
+
+    from jpeg_detection_resnet_ssd_torch.data import ClassificationPipeline, ImageFolderDataset
+    from jpeg_detection_resnet_ssd_torch.eval import ClassificationEvaluator
+    from jpeg_detection_resnet_ssd_torch.train.checkpoints import CheckpointManager
+    from jpeg_detection_resnet_ssd_torch.train.config import ExperimentConfig
+    from jpeg_detection_resnet_ssd_torch.train.loop import build_trainer
+
+    config = ExperimentConfig.load(os.path.join(args.run_dir, "saved_config.json"))
+    trainer, module, _ = build_trainer(config, device=args.device)
+    CheckpointManager(os.path.join(args.run_dir, "checkpoints")).restore(trainer)
+    module.eval()
+
+    def infer(inputs):
+        with torch.no_grad():
+            return module(inputs)
+
+    ds = ImageFolderDataset(args.val_dir, args.class_index_json)
+    pipe = ClassificationPipeline(
+        ds, args.batch_size, train=False, input_format=config.input_format,
+        num_workers=config.num_workers, drop_remainder=True,
+    )
+    print(json.dumps(ClassificationEvaluator(infer, pipe)()))
+
+
 def cmd_compute_map(args):
     """Offline mAP from VOC-format txt predictions + XML ground truth."""
     from jpeg_detection_resnet_ssd_torch.data import parse_voc_xml
@@ -396,6 +489,19 @@ def build_parser():
     p = argparse.ArgumentParser(prog="python -m jpeg_detection_resnet_ssd_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
 
+    tc = sub.add_parser("train-classify")
+    _add_train_common(tc)
+    tc.add_argument("--train-dir", required=True)
+    tc.add_argument("--class-index-json", default=None)
+    tc.add_argument("--device-augment", action="store_true",
+                    help="DCT-domain random-resized crop, flip and photometric "
+                         "inside the train step, on the card (256-px host "
+                         "source, 224-px crops; no re-encode)")
+    tc.add_argument("--pack-cache", default=None,
+                    help="with --device-augment: stem path for a decode-once "
+                         "memmapped DCT corpus (created if absent)")
+    tc.set_defaults(fn=cmd_train_classify)
+
     td = sub.add_parser("train-detect")
     _add_train_common(td)
     td.add_argument("--voc-root", nargs="+", required=True)
@@ -404,7 +510,7 @@ def build_parser():
     td.add_argument("--reg", dest="reg", action="store_true", default=True)
     td.add_argument("--no_reg", dest="reg", action="store_false")
     td.add_argument("--vgg", action="store_true",
-                    help="VGG-DCT backbone (not ported: ROADMAP A12)")
+                    help="VGG-DCT backbone (not ported: ROADMAP A12b)")
     td.add_argument("--device-augment", action="store_true",
                     help="DCT-domain augmentation chain (photometric + expand + "
                          "min-IoU crop + flip) and target encoding inside the "
@@ -444,6 +550,15 @@ def build_parser():
     ev.add_argument("--device", default="cuda",
                     help="where the model runs (default cuda; cpu for tests)")
     ev.set_defaults(fn=cmd_evaluate)
+
+    ec = sub.add_parser("evaluate-classify")
+    ec.add_argument("--run-dir", required=True)
+    ec.add_argument("--val-dir", required=True)
+    ec.add_argument("--class-index-json", default=None)
+    ec.add_argument("--batch-size", type=int, default=64)
+    ec.add_argument("--device", default="cuda",
+                    help="where the model runs (default cuda; cpu for tests)")
+    ec.set_defaults(fn=cmd_evaluate_classify)
 
     cm = sub.add_parser("compute-map")
     cm.add_argument("--pred-dir", required=True)

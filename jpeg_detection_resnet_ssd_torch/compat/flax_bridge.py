@@ -2,14 +2,22 @@
 
 The port registers its layers under the same names as the flax modules, so a
 flax path `("head", "fc7_mbox_loc", "kernel")` is the state_dict key
-`head.fc7_mbox_loc.weight`.  Leaves are renamed and kernels transposed:
+`head.fc7_mbox_loc.weight`.  Leaves are renamed and kernels laid out as
+the module that owns them wants:
 
-  params/kernel        HWIO -> OIHW   weight
-  params/bias                         bias
-  params/scale         (BatchNorm)    weight
-  params/gamma         (L2Norm)       gamma
-  batch_stats/mean                    running_mean
-  batch_stats/var                     running_var
+  params/kernel  Conv           HWIO -> OIHW                       weight
+                 ConvTranspose  (k, k, in, out) -> (in, out, k, k),
+                                flipped in both spatial axes       weight
+                 Dense          (in, out) -> (out, in)             weight
+  params/bias                                                      bias
+  params/scale   (BatchNorm)                                       weight
+  params/gamma   (L2Norm)                                          gamma
+  batch_stats/mean                                                 running_mean
+  batch_stats/var                                                  running_var
+
+(flax's ConvTranspose with `transpose_kernel=False` correlates the dilated
+input with its kernel as it is; `F.conv_transpose2d` with the flipped
+kernel computes the same, see `models.layers.ConvTranspose`.)
 
 The caller converts the pytree to NumPy (`jax.tree_util.tree_map(np.asarray,
 variables)`); this module imports no jax.  `flax_variables` goes the other
@@ -24,6 +32,8 @@ from collections.abc import Mapping
 import numpy as np
 import torch
 from torch import nn
+
+from jpeg_detection_resnet_ssd_torch.models.layers import ConvTranspose, Dense
 
 _LEAF_NAMES = {
     "params": {"kernel": "weight", "bias": "bias", "scale": "weight", "gamma": "gamma"},
@@ -40,8 +50,37 @@ def _flatten(tree: Mapping, prefix: tuple = ()):
             yield path, value
 
 
-def _flax_to_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
-    """`{"params", "batch_stats"}` NumPy pytree -> {torch key: array}."""
+def kernel_to_torch(owner: nn.Module, kernel: np.ndarray) -> np.ndarray | None:
+    """A flax kernel in the layout of `owner`'s weight, or None when its rank
+    is not the owner's (a Dense kernel for a conv, say)."""
+    kernel = np.asarray(kernel)
+    if isinstance(owner, ConvTranspose):
+        return kernel[::-1, ::-1].transpose(2, 3, 0, 1) if kernel.ndim == 4 else None
+    if isinstance(owner, Dense):
+        return kernel.T if kernel.ndim == 2 else None
+    return kernel.transpose(3, 2, 0, 1) if kernel.ndim == 4 else None
+
+
+def kernel_to_flax(owner: nn.Module, weight: np.ndarray) -> np.ndarray:
+    """The inverse of `kernel_to_torch`."""
+    if isinstance(owner, ConvTranspose):
+        return weight.transpose(2, 3, 0, 1)[::-1, ::-1]
+    if isinstance(owner, Dense):
+        return weight.T
+    return weight.transpose(2, 3, 1, 0)
+
+
+def _owner(module: nn.Module, scope) -> nn.Module | None:
+    try:
+        return module.get_submodule(".".join(scope))
+    except AttributeError:
+        return None
+
+
+def _flax_to_state_dict(variables: Mapping, module: nn.Module | None = None) -> dict[str, np.ndarray]:
+    """`{"params", "batch_stats"}` NumPy pytree -> {torch key: array}.  A
+    kernel takes the layout of the layer of `module` that owns it; without
+    a module (or an owner), a 4-dim kernel is a convolution's."""
     out: dict[str, np.ndarray] = {}
     for collection, tree in variables.items():
         if collection not in _LEAF_NAMES:
@@ -54,9 +93,15 @@ def _flax_to_state_dict(variables: Mapping) -> dict[str, np.ndarray]:
                 raise KeyError(f"unknown leaf {collection}/{'/'.join(path)}") from None
             arr = np.asarray(value)
             if leaf == "kernel":
-                if arr.ndim != 4:
-                    raise ValueError(f"kernel {'/'.join(scope)} has {arr.ndim} dims, expected HWIO")
-                arr = arr.transpose(3, 2, 0, 1)
+                owner = None if module is None else _owner(module, scope)
+                if owner is None:
+                    arr = arr.transpose(3, 2, 0, 1) if arr.ndim == 4 else arr
+                else:
+                    converted = kernel_to_torch(owner, arr)
+                    if converted is None:
+                        raise ValueError(f"kernel {'/'.join(scope)} has {arr.ndim} dims, which "
+                                         f"{type(owner).__name__} does not take")
+                    arr = converted
             out[".".join([*scope, name])] = arr
     return out
 
@@ -66,7 +111,7 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     variables; raises on any missing, unused or mis-shaped entry.  The
     BatchNorm step counters (`num_batches_tracked`) have no flax counterpart
     and are left as they are."""
-    arrays = _flax_to_state_dict(variables)
+    arrays = _flax_to_state_dict(variables, module)
     state = module.state_dict()
     expected = {k for k in state if not k.endswith("num_batches_tracked")}
     missing = sorted(expected - arrays.keys())
@@ -85,24 +130,27 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
 def flax_variables(module: nn.Module) -> dict:
     """`module`'s parameters and BatchNorm statistics as a flax-layout
     `{"params", "batch_stats"}` NumPy pytree: the inverse of
-    `load_flax_variables` (a 4-dim `weight` is a conv kernel, any other
-    `weight` a BatchNorm scale)."""
+    `load_flax_variables` (a BatchNorm's `weight` is its scale, any other
+    layer's its kernel)."""
     out: dict = {"params": {}, "batch_stats": {}}
-    for key, tensor in module.state_dict().items():
-        *scope, name = key.split(".")
-        if name == "num_batches_tracked":
-            continue
-        arr = tensor.detach().cpu().numpy().copy()
-        if name in ("running_mean", "running_var"):
-            collection, leaf = "batch_stats", name[len("running_"):]
-        elif name == "weight":
-            collection, leaf = "params", "kernel" if arr.ndim == 4 else "scale"
-            if arr.ndim == 4:
-                arr = arr.transpose(2, 3, 1, 0)
-        else:
-            collection, leaf = "params", name
-        node = out[collection]
-        for part in scope:
-            node = node.setdefault(part, {})
-        node[leaf] = arr
+    for scope_name, owner in module.named_modules():
+        scope = scope_name.split(".") if scope_name else []
+        own = [*owner.named_parameters(recurse=False), *owner.named_buffers(recurse=False)]
+        for name, tensor in own:
+            if name == "num_batches_tracked":
+                continue  # no flax counterpart
+            arr = tensor.detach().cpu().numpy().copy()
+            if name in ("running_mean", "running_var"):
+                collection, leaf = "batch_stats", name[len("running_"):]
+            elif name == "weight" and isinstance(owner, nn.BatchNorm2d):
+                collection, leaf = "params", "scale"
+            elif name == "weight":
+                collection, leaf = "params", "kernel"
+                arr = np.ascontiguousarray(kernel_to_flax(owner, arr))
+            else:
+                collection, leaf = "params", name
+            node = out[collection]
+            for part in scope:
+                node = node.setdefault(part, {})
+            node[leaf] = arr
     return out

@@ -11,13 +11,16 @@ leaf to the module's tensor through `compat.flax_bridge`'s leaf table, so
 the two importers share one naming:
 
   Conv2D     kernel (kh, kw, cin, cout), bias      -> weight (OIHW), bias
+  Dense      kernel (cin, cout), bias              -> weight (cout, cin), bias
   BatchNorm  gamma, beta, moving_mean, moving_var  -> weight, bias,
              running_mean, running_var
   L2Normalization  <name>_gamma (c,)               -> gamma
+  Conv2DTranspose  kernel (kh, kw, cout, cin)      -> (kh, kw, cin, cout) as
+             the JAX importer takes it (`transpose_conv_layers`), then the
+             port's ConvTranspose layout (`flax_bridge.kernel_to_torch`)
 
-The port has no dense or transposed-convolution layer yet (their models are
-ROADMAP A12), so a kernel of another rank does not fit and its layer is
-reported mismatched, and `transpose_conv_layers` raises.
+A kernel whose rank the layer does not take does not fit, and its layer is
+reported mismatched.
 
 h5py is imported inside the functions, so the package imports without it.
 """
@@ -28,7 +31,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from jpeg_detection_resnet_ssd_torch.compat.flax_bridge import _LEAF_NAMES
+from jpeg_detection_resnet_ssd_torch.compat.flax_bridge import _LEAF_NAMES, kernel_to_torch
 
 
 def _h5_weight_group(f):
@@ -113,17 +116,13 @@ def import_weights_by_name(
     Args:
       module: a port module whose layers carry Keras names.
       rename: optional {h5_layer_name: module_layer_name} overrides.
-      transpose_conv_layers: layer names whose kernels are Conv2DTranspose;
-        the port has none yet (ROADMAP A12), so a non-empty tuple raises.
+      transpose_conv_layers: layer names whose kernels are Conv2DTranspose
+        (Keras stores (kh, kw, cout, cin)).
 
     Returns (module, report) where report lists loaded / skipped /
     shape-mismatched H5 layer names, as the JAX package's importer does.  A
     layer is loaded whole or not at all.
     """
-    if transpose_conv_layers:
-        raise NotImplementedError(
-            "transposed convolutions are not ported to PyTorch yet (ROADMAP A12)"
-        )
     h5 = load_keras_h5_weights(h5_path)
     rename = rename or {}
     state = module.state_dict()
@@ -146,8 +145,12 @@ def import_weights_by_name(
             else:
                 break
             key = f"{scope}.{_LEAF_NAMES[collection][leaf]}"
-            if leaf == "kernel" and arr.ndim == 4:
-                arr = np.transpose(arr, (3, 2, 0, 1))  # HWIO -> OIHW
+            if leaf == "kernel":
+                if lname in transpose_conv_layers:
+                    arr = np.transpose(arr, (0, 1, 3, 2))
+                arr = kernel_to_torch(module.get_submodule(scope), arr)
+                if arr is None:
+                    break
             if key not in state or tuple(state[key].shape) != tuple(arr.shape):
                 break
             staged.append((state[key], arr))

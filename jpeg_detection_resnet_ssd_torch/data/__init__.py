@@ -1,9 +1,9 @@
-"""Datasets, the JPEG -> DCT input transform, the detection pipeline with
-its host augmentation chain, and the packed DCT corpus.
+"""Datasets, the JPEG -> DCT input transform, the detection and
+classification pipelines with their host augmentation, and the packed DCT
+corpus.
 
-The names of the JAX package's `data/__init__.py` that are ported;
-`ClassificationPipeline` is ROADMAP A12.  Nothing here imports PIL, cv2 or
-h5py at module level.
+The names of the JAX package's `data/__init__.py`.  Nothing here imports
+PIL, cv2 or h5py at module level.
 """
 
 from jpeg_detection_resnet_ssd_torch.data.datasets import (
@@ -20,12 +20,19 @@ from jpeg_detection_resnet_ssd_torch.data.dct_convert import (
     split_cbcr,
 )
 from jpeg_detection_resnet_ssd_torch.data.packed import PackedDctDataset, PackedDctPipeline
-from jpeg_detection_resnet_ssd_torch.data.pipeline import DetectionPipeline, prefetch_to_device
+from jpeg_detection_resnet_ssd_torch.data.pipeline import (
+    ClassificationPipeline,
+    DetectionPipeline,
+    DeviceDCTAugmentedPipeline,
+    prefetch_to_device,
+)
 
 __all__ = [
     "VOC_CLASSES",
+    "ClassificationPipeline",
     "DetectionDataset",
     "DetectionPipeline",
+    "DeviceDCTAugmentedPipeline",
     "ImageFolderDataset",
     "PackedDctDataset",
     "PackedDctPipeline",

@@ -1,19 +1,21 @@
-"""Label-aware image ops and the host detection augmentation chains.
+"""Label-aware image ops, the host detection augmentation chains and the
+classification views.
 
-Counterpart of the detection half of the JAX package's `data/augment.py`:
-the photometric, geometric and patch-sampling ops of the reference's
+Counterpart of the JAX package's `data/augment.py`: the photometric,
+geometric and patch-sampling ops of the reference's
 `object_detection_2d_*_ops.py` and the Caffe-SSD training chain
 `SSDDataAugmentation` that `DetectionPipeline(train=True)` runs by default,
-plus the box filters and the preset chains.  Each op is a pure function or
-class over (image uint8 RGB, labels (k, 5)) that takes an explicit
-`np.random.Generator`, and draws from it in the JAX package's order, so both
-packages give identical images and labels from one seed.
+plus the box filters and the preset chains; and the classification
+photometric helpers (`grayscale`, `cls_*`) with the ImageNet training and
+evaluation views that `ClassificationPipeline` runs.  Each op is a pure
+function or class over an image (uint8 RGB; labels (k, 5) for detection)
+that takes an explicit `np.random.Generator` and draws from it in the JAX
+package's order, so both packages give identical images from one seed.
 
 Geometric ops can emit inverters (callables mapping predicted boxes back to
 original image coordinates), the reference's `apply_inverse_transforms`
-contract.  The classification helpers are ROADMAP A12.  cv2 is imported
-inside the functions that use it, so the package imports where OpenCV is
-not installed.
+contract.  cv2 is imported inside the functions that use it, so the
+package imports where OpenCV is not installed.
 
 Labels layout: (class_id, xmin, ymin, xmax, ymax) absolute pixel corners.
 """
@@ -606,6 +608,95 @@ def SSDDataAugmentationNoCrop(img_height=300, img_width=300,
                               background=(123, 117, 104)):
     """`--no_crop` chain variant (`data_augmentation_chain_original_ssd_no_crop.py:208`)."""
     return SSDDataAugmentation(img_height, img_width, background, crop=False)
+
+
+# ---------------------------------------------------------------------------
+# classification photometric helpers (`classification_part/.../helper.py`)
+# ---------------------------------------------------------------------------
+
+def grayscale(rgb):
+    return rgb.dot([0.299, 0.587, 0.114])
+
+
+# Deterministic cores (parameter injected) + drawing wrappers.  The alpha
+# draw `2*U(0,1)*var + 1 - var` of the reference (`helper.py:18-19`) is
+# 1 + U(-var, var), which the wrappers draw.
+
+
+def cls_saturation_core(rgb, alpha):
+    gs = grayscale(rgb)
+    out = rgb * alpha + (1 - alpha) * gs[:, :, None]
+    return np.clip(out, 0, 255).astype(np.uint8)
+
+
+def cls_saturation(rgb, rng, var=0.5):
+    return cls_saturation_core(rgb, 1.0 + rng.uniform(-var, var))
+
+
+def cls_brightness_core(rgb, alpha):
+    return np.clip(rgb * alpha, 0, 255).astype(np.uint8)
+
+
+def cls_brightness(rgb, rng, var=0.5):
+    return cls_brightness_core(rgb, 1.0 + rng.uniform(-var, var))
+
+
+def cls_contrast_core(rgb, alpha):
+    gs = grayscale(rgb).mean() * np.ones_like(rgb, dtype=np.float64)
+    return np.clip(rgb * alpha + (1 - alpha) * gs, 0, 255).astype(np.uint8)
+
+
+def cls_contrast(rgb, rng, var=0.5):
+    return cls_contrast_core(rgb, 1.0 + rng.uniform(-var, var))
+
+
+def cls_lighting_core(img, noise3):
+    """AlexNet-style PCA color shift with the 3-vector draw injected."""
+    cov = np.cov(img.reshape(-1, 3) / 255.0, rowvar=False)
+    eigval, eigvec = np.linalg.eigh(cov)
+    noise = eigvec.dot(eigval * noise3) * 255
+    return np.clip(img + noise, 0, 255).astype(np.uint8)
+
+
+def cls_lighting(img, rng, std=0.5):
+    """AlexNet-style PCA color augmentation (`helper.py:39-45`)."""
+    return cls_lighting_core(img, rng.normal(0, std, 3))
+
+
+CLASSIFICATION_TRANSFORMS = (cls_lighting, cls_contrast, cls_brightness,
+                             cls_saturation)
+
+
+def classification_train_view(image, rng, size=224,
+                              transforms=CLASSIFICATION_TRANSFORMS):
+    """The reference's ImageNet training view (`generators.py:141-177`):
+    scale the shorter side to `size`, random crop, random hflip, then each
+    photometric transform in shuffled order with p=0.5."""
+    import cv2
+
+    h, w = image.shape[:2]
+    if h < w:
+        nh, nw = size, max(size, int(round(w * size / h)))
+    else:
+        nh, nw = max(size, int(round(h * size / w))), size
+    image = cv2.resize(image, (nw, nh), interpolation=cv2.INTER_LINEAR)
+    oy = int(rng.integers(0, nh - size + 1))
+    ox = int(rng.integers(0, nw - size + 1))
+    image = image[oy : oy + size, ox : ox + size]
+    if rng.random() < 0.5:
+        image = image[:, ::-1]
+    order = rng.permutation(len(transforms))
+    for i in order:
+        if rng.random() < 0.5:
+            image = transforms[i](image, rng)
+    return np.ascontiguousarray(image)
+
+
+def classification_eval_view(image, size=224):
+    """Plain resize to (size, size) (`generators.py:161-163`)."""
+    import cv2
+
+    return cv2.resize(image, (size, size), interpolation=cv2.INTER_LINEAR)
 
 
 # ---------------------------------------------------------------------------

@@ -1,8 +1,8 @@
 """Packed DCT-tensor corpus: decode once, train from memmapped coefficients.
 
-Counterpart of the detection half of the JAX package's `data/packed.py`,
-with its file formats, names and `meta.json` keys, so a corpus packed by
-either package loads in the other.  With the device augmentation chain
+Counterpart of the JAX package's `data/packed.py`, with its file formats,
+names and `meta.json` keys, so a corpus packed by either package loads in
+the other.  With the device augmentation chain
 (`ops/dct_detect_augment.py`) no pixel work is left per epoch, so the host
 only hands the card fixed-shape coefficient tensors.  A detection corpus
 is decoded once into
@@ -14,11 +14,14 @@ is decoded once into
     <stem>.meta.json   n, img_height, img_width, max_gt, quality
 
 and `PackedDctPipeline` serves batches with a gather and a cast per batch.
-Epochs are shuffled per (seed, epoch); shards slice the index space.
+Epochs are shuffled per (seed, epoch); shards slice the index space.  A
+classification corpus (`create_classification`) has the same planes at a
+square frame, `labels.npz` with int32 `labels` and `image_ids`, and
+`meta.json` with n, img_size, quality and `task: classification`.
 
-Not ported yet: `create_classification` (ROADMAP A12) and the barrier of a
-multi-process `load_or_create` (A13): here the one process is process 0.
-PIL is imported inside `create`, so the package imports without it.
+Not ported yet: the barrier of a multi-process `load_or_create` (ROADMAP
+A13): here the one process is process 0.  PIL and cv2 are imported inside
+the functions that decode, so the package imports without them.
 """
 
 from __future__ import annotations
@@ -31,14 +34,14 @@ import numpy as np
 
 from jpeg_detection_resnet_ssd_torch.data import augment as aug
 from jpeg_detection_resnet_ssd_torch.data.dct_convert import rgb_to_dct_tensors
-from jpeg_detection_resnet_ssd_torch.data.pipeline import _load_record_rgb
+from jpeg_detection_resnet_ssd_torch.data.pipeline import _load_record_rgb, _load_rgb
 
 
 class PackedDctDataset:
     """Memmap-backed fixed-frame DCT corpus for the device-augment path.
 
-    Detection corpora (`create`) carry padded GT boxes; a classification
-    corpus packed by the JAX package loads too and carries int labels."""
+    Detection corpora (`create`) carry padded GT boxes; classification
+    corpora (`create_classification`) carry int class labels."""
 
     def __init__(self, stem: str):
         self.stem = stem
@@ -58,6 +61,53 @@ class PackedDctDataset:
 
     def __len__(self):
         return self.y.shape[0]
+
+    @classmethod
+    def create_classification(
+        cls,
+        dataset,
+        stem: str,
+        img_size: int = 256,
+        quality: int = 75,
+        num_workers: int = 8,
+        verbose: bool = False,
+    ) -> "PackedDctDataset":
+        """Pack an (image, class-label) dataset (records `(path, label)`, as
+        `ImageFolderDataset` gives) at the device-augment source frame
+        (oversized, e.g. 256 = 32 luma blocks for a 224 crop): the
+        evaluation view's resize, then the block DCT."""
+        n = len(dataset)
+        s8 = img_size // 8
+        os.makedirs(os.path.dirname(stem) or ".", exist_ok=True)
+        y_arr = np.lib.format.open_memmap(
+            stem + ".y.npy", mode="w+", dtype=np.int16, shape=(n, s8, s8, 64),
+        )
+        c_arr = np.lib.format.open_memmap(
+            stem + ".cbcr.npy", mode="w+", dtype=np.int16, shape=(n, s8 // 2, s8 // 2, 128),
+        )
+        labels = np.zeros((n,), np.int32)
+        image_ids = [""] * n
+
+        def work(i):
+            path, label = dataset[i]
+            image = aug.classification_eval_view(_load_rgb(path), size=img_size)
+            y, cbcr = rgb_to_dct_tensors(image, quality=quality)
+            y_arr[i] = y.astype(np.int16)
+            c_arr[i] = cbcr.astype(np.int16)
+            labels[i] = label
+            image_ids[i] = os.path.basename(path)
+            if verbose and i % 1000 == 0:
+                print(f"pack: {i}/{n}", flush=True)
+
+        with ThreadPoolExecutor(num_workers) as pool:
+            list(pool.map(work, range(n)))
+        y_arr.flush()
+        c_arr.flush()
+        np.savez(stem + ".labels.npz", labels=labels, image_ids=np.asarray(image_ids))
+        with open(stem + ".meta.json", "w") as f:
+            json.dump({"n": n, "img_size": img_size, "quality": quality,
+                       "task": "classification"}, f)
+        return cls(stem)
 
     @classmethod
     def create(
@@ -174,18 +224,16 @@ def load_or_create(
     """Create-or-load with staleness validation, in one process.
 
     Pass the full (unsharded) dataset.  The corpus is packed when
-    `<stem>.meta.json` does not exist; then the loaded corpus is validated
+    `<stem>.meta.json` does not exist (`create_classification` for
+    `task="classification"`, else `create`); then the loaded corpus is validated
     against the dataset's size and the pack parameters, so a stale cache (a
     different dataset, a changed frame size or quality) raises instead of
     training on the wrong data.  Shard at the pipeline
     (`PackedDctPipeline(shard_index=..., shard_count=...)`), never here."""
-    if task != "detection":
-        raise NotImplementedError(
-            f"packing a {task!r} corpus is not ported to PyTorch yet (ROADMAP A12)"
-        )
     if not os.path.exists(stem + ".meta.json"):
-        PackedDctDataset.create(dataset, stem, num_workers=num_workers, verbose=verbose,
-                                **create_kwargs)
+        create = (PackedDctDataset.create_classification if task == "classification"
+                  else PackedDctDataset.create)
+        create(dataset, stem, num_workers=num_workers, verbose=verbose, **create_kwargs)
     packed = PackedDctDataset(stem)
     if len(packed) != len(dataset):
         raise ValueError(

@@ -1,8 +1,8 @@
-"""Host-side input pipeline: threaded decode -> augment -> DCT -> batches.
+"""Host-side input pipelines: threaded decode -> augment -> DCT -> batches.
 
-Counterpart of the JAX package's `data/pipeline.py` for detection, with the
-same seeded epoch order and per-item generators, so both packages yield equal
-batches from one dataset:
+Counterpart of the JAX package's `data/pipeline.py`, with the same seeded
+epoch order and per-item generators, so both packages yield equal batches
+from one dataset:
 
   * per-epoch shuffle from `np.random.default_rng((seed, epoch))` when
     training, dataset order otherwise;
@@ -19,9 +19,11 @@ Input formats:
   'dct_image'  -> (H, W, 3) DCT plane (jpegdecoder layout)
   'dct_255'    -> (H, W, 3) DCT plane rescaled to 0-255
 
-Not ported yet (ROADMAP A12): `ClassificationPipeline` and
-`DeviceDCTAugmentedPipeline`.  PIL is imported inside the functions that
-decode, so the package imports without it.
+`ClassificationPipeline` yields ImageNet-style batches (the training view
+with host augmentation, or the evaluation resize); `DeviceDCTAugmentedPipeline`
+decodes one oversized coefficient map per image on the host and crops and
+flips it on the device.  PIL is imported inside the functions that decode,
+so the package imports without it.
 """
 
 from __future__ import annotations
@@ -129,6 +131,44 @@ class _BasePipeline:
 
     def _collate(self, items):  # pragma: no cover - abstract
         raise NotImplementedError
+
+
+class ClassificationPipeline(_BasePipeline):
+    """ImageNet-style batches {'inputs': ..., 'labels': int32 (B,)} from an
+    `ImageFolderDataset` (records `(path, label)`).
+
+    Training applies `augment.classification_train_view` with the item's
+    generator; evaluation (or `host_augment=False` while training, the
+    contract of the device-augment paths: epoch shuffling and
+    drop_remainder stay, the host emits the deterministic view) applies
+    `classification_eval_view`."""
+
+    def __init__(self, dataset, batch_size: int, *, train: bool,
+                 input_format: str = "dct", image_size: int = 224,
+                 host_augment: bool | None = None, **kw):
+        super().__init__(dataset, batch_size, train=train,
+                         input_format=input_format, **kw)
+        self.image_size = image_size
+        self.host_augment = train if host_augment is None else host_augment
+
+    def _prepare_item(self, index):
+        path, label = self.dataset[int(index)]
+        image = _load_rgb(path)
+        if self.host_augment:
+            image = aug.classification_train_view(
+                image, self._item_rng(index), self.image_size
+            )
+        else:
+            image = aug.classification_eval_view(image, self.image_size)
+        return image, label
+
+    def _collate(self, items):
+        images = [im for im, _ in items]
+        labels = np.asarray([lab for _, lab in items], np.int32)
+        return {
+            "inputs": _pack_inputs(images, self.input_format),
+            "labels": labels,
+        }
 
 
 class DetectionPipeline(_BasePipeline):
@@ -285,3 +325,71 @@ def _prefetch(iterator, size: int, dev: torch.device):
     finally:
         stop.set()
         thread.join()
+
+
+class DeviceDCTAugmentedPipeline:
+    """Recompression-free classification batches: the host decodes one
+    oversized DCT map per image (`ClassificationPipeline(host_augment=False,
+    image_size=source_size)`), and the crop and flip run on `device` in
+    coefficient space.
+
+    Training: step s's draws come from a CPU generator seeded
+    `(seed << 20) ^ s` (the JAX pipeline's key), a random 16-px-aligned
+    crop to `crop_blocks` and a flip (`ops.dct_random_crop_flip_apply`, the
+    flip kernel on the card), then with `photometric` the DCT photometric
+    op from the same generator.  Evaluation: the exact center crop.  Yields
+    {'inputs': (y (B, c, c, 64), cbcr (B, c/2, c/2, 128)), 'labels'} with
+    the planes as float32 tensors on `device` (None means CUDA and raises
+    without a card)."""
+
+    def __init__(self, dataset, batch_size: int, *, train: bool = True,
+                 source_size: int = 256, crop_blocks: int = 28,
+                 photometric: bool = True, seed: int = 0, num_workers: int = 8,
+                 quality: int = 75, device: str | torch.device | None = None):
+        self.device = resolve_device(device)
+        self.inner = ClassificationPipeline(
+            dataset, batch_size, train=train, host_augment=False,
+            input_format="dct", image_size=source_size, seed=seed,
+            num_workers=num_workers,
+        )
+        self.train = train
+        self.crop_blocks = crop_blocks
+        self.photometric = photometric
+        self.seed = seed
+        self._step = 0
+
+    def __len__(self):
+        return len(self.inner)
+
+    def __iter__(self):
+        from jpeg_detection_resnet_ssd_torch.ops import _draws
+        from jpeg_detection_resnet_ssd_torch.ops.dct_augment import (
+            dct_random_crop_flip_apply,
+            dct_random_photometric_apply,
+            sample_crop_flip,
+            sample_photometric,
+        )
+
+        c = self.crop_blocks
+        for batch in self.inner:
+            y, cbcr = batch["inputs"]
+            if self.train:
+                gen = torch.Generator().manual_seed((self.seed << 20) ^ self._step)
+                self._step += 1
+                b, h8, w8 = y.shape[:3]
+                draws = {"crop": sample_crop_flip(b, h8, w8, gen, c)}
+                if self.photometric:
+                    draws["photometric"] = sample_photometric(b, gen)
+                draws = _draws.to_device(draws, self.device)
+                y, cbcr = (torch.from_numpy(a).to(self.device) for a in (y, cbcr))
+                y, cbcr = dct_random_crop_flip_apply(y, cbcr, draws["crop"], c, c // 2)
+                if self.photometric:
+                    y, cbcr = dct_random_photometric_apply(y, cbcr, draws["photometric"])
+            else:
+                off = ((y.shape[1] - c) // 4) * 2
+                offc, cb = off // 2, c // 2
+                y = torch.from_numpy(np.ascontiguousarray(y[:, off:off + c, off:off + c]))
+                cbcr = torch.from_numpy(
+                    np.ascontiguousarray(cbcr[:, offc:offc + cb, offc:offc + cb]))
+                y, cbcr = y.to(self.device), cbcr.to(self.device)
+            yield {"inputs": (y, cbcr), "labels": batch["labels"]}

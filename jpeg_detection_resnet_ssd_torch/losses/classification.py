@@ -1,13 +1,17 @@
-"""The selective L2 penalty of the SSD neck and head (torch).
+"""Classification loss and top-k accuracy, and the selective L2 penalty of
+the SSD neck and head (torch).
 
-Counterpart of `l2_regularization_loss` and `default_ssd_reg_filter` in the
-JAX package's `losses/classification.py`: the reference attaches Keras
+Counterpart of the JAX package's `losses/classification.py`.  The models
+emit logits, so the categorical cross-entropy is computed from logits.
+`top_k_accuracy` counts a hit where the label is among the k largest
+logits, ties going to the lower class index, as `lax.top_k` orders them.
+
+`l2_regularization_loss` and `default_ssd_reg_filter`: the reference attaches Keras
 `kernel_regularizer=l2(5e-4)` to its SSD neck and head convolutions, which
 is `scale * sum(W^2)` (no 1/2) over exactly those kernels.  The filter takes
 the JAX package's parameter path, so parameters are named here as flax
 names them: a convolution's `weight` is its `kernel`, a BatchNorm's `weight`
-its `scale`.  (`softmax_cross_entropy` and `top_k_accuracy` come with the
-classification models, ROADMAP slice 5.)
+its `scale`.
 """
 
 from __future__ import annotations
@@ -16,6 +20,24 @@ from typing import Callable, Iterator
 
 import torch
 from torch import nn
+
+def softmax_cross_entropy(logits: torch.Tensor, labels_onehot: torch.Tensor) -> torch.Tensor:
+    """Mean categorical cross-entropy from logits: log-softmax in the
+    logits' dtype, then the one-hot weighted sum in the promoted dtype."""
+    logp = torch.log_softmax(logits, dim=-1)
+    return -(labels_onehot * logp).sum(-1).mean()
+
+
+def top_k_accuracy(logits: torch.Tensor, labels: torch.Tensor, k: int = 1) -> torch.Tensor:
+    """Share of rows whose int label is among the top min(k, C) logits
+    (float32 scalar): the label's rank is the count of larger logits plus
+    the equal ones at a lower index."""
+    labels = labels.long()[:, None]
+    at = logits.gather(-1, labels)
+    idx = torch.arange(logits.shape[-1], device=logits.device)
+    rank = (logits > at).sum(-1) + ((logits == at) & (idx < labels)).sum(-1)
+    return (rank < min(k, logits.shape[-1])).float().mean()
+
 
 # SSD neck and head layer names that carry l2(5e-4) in the reference.
 _SSD_REGULARIZED_PREFIXES = (

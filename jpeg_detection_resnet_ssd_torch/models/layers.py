@@ -23,6 +23,11 @@ runs through `ops.conv_grad.conv3x3_same_wgrad`, whose filter gradient is
 the CUDA kernel `ops/csrc/conv3x3_wgrad.cu`.  The forward, the input
 gradient and the parameter names are unchanged.  Unlike the JAX switch (read
 at trace time), this one is read at every forward call.
+
+`running_stats_frozen()` makes train-mode BatchNorm normalise with the batch
+statistics without moving its running statistics: the recompute of a
+checkpointed (`remat`) branch runs under it, so a branch's statistics move
+once a step, as in the JAX package, where the recompute is a pure function.
 """
 
 from __future__ import annotations
@@ -45,6 +50,7 @@ _TRUNC_STD = 0.87962566103423978
 
 
 _WGRAD_KERNEL_ENABLED = False
+_STATS_FROZEN = False
 
 
 def pallas_wgrad_enabled() -> bool:
@@ -63,6 +69,18 @@ def pallas_wgrad(enabled: bool = True):
         _WGRAD_KERNEL_ENABLED = prev
 
 
+@contextlib.contextmanager
+def running_stats_frozen():
+    """Inside the block, train-mode BatchNorm leaves its running statistics
+    and step counter as they are."""
+    global _STATS_FROZEN
+    prev, _STATS_FROZEN = _STATS_FROZEN, True
+    try:
+        yield
+    finally:
+        _STATS_FROZEN = prev
+
+
 def conv3x3_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
     """3x3 stride-1 SAME conv of NHWC `x` with an OIHW `weight` and `bias`,
     both already in x's dtype.  With the switch on, the filter gradient comes
@@ -74,12 +92,16 @@ def conv3x3_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | Non
     return nchw_to_nhwc(F.conv2d(nhwc_to_nchw(x), weight, bias, 1, 1))
 
 
-def he_normal_(weight: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-    """In-place he_normal init of an OIHW conv kernel (fan_in = I*H*W)."""
-    fan_in = weight.shape[1] * weight.shape[2] * weight.shape[3]
-    std = math.sqrt(2.0 / fan_in) / _TRUNC_STD
+def _trunc_normal_(weight: torch.Tensor, scale: float, fan_in: int, generator) -> torch.Tensor:
+    """flax's variance_scaling(scale, "fan_in", "truncated_normal")."""
+    std = math.sqrt(scale / fan_in) / _TRUNC_STD
     with torch.no_grad():
         return nn.init.trunc_normal_(weight, 0.0, std, -2.0 * std, 2.0 * std, generator=generator)
+
+
+def he_normal_(weight: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+    """In-place he_normal init of an OIHW conv kernel (fan_in = I*H*W)."""
+    return _trunc_normal_(weight, 2.0, weight[0].numel(), generator)
 
 
 def nhwc_to_nchw(x: torch.Tensor) -> torch.Tensor:
@@ -143,6 +165,49 @@ class Conv(nn.Module):
         return nchw_to_nhwc(y)
 
 
+class ConvTranspose(nn.Module):
+    """flax's `nn.ConvTranspose(features, (k, k), strides=(s, s),
+    padding="VALID")` on NHWC, with flax's default `transpose_kernel=False`
+    (k >= s): he_normal kernel (fan_in = k*k*in), zero bias.
+
+    flax's op correlates the stride-dilated input with the kernel as it is,
+    which is the gradient-of-a-convolution transpose that
+    `F.conv_transpose2d` computes with the kernel flipped in both spatial
+    axes: for k = s = 2, output row 2i + a takes x[i] * kernel[1 - a].  The
+    weight is stored in torch's (in, out, k, k) layout, already flipped;
+    `compat.flax_bridge` flips and transposes flax's (k, k, in, out)."""
+
+    def __init__(self, in_features: int, features: int, kernel: int = 2, strides: int = 2,
+                 padding: str = "VALID", generator: torch.Generator | None = None):
+        super().__init__()
+        if padding != "VALID" or kernel < strides:
+            raise NotImplementedError("ConvTranspose is ported for VALID padding and kernel >= strides")
+        self.stride = strides
+        self.weight = nn.Parameter(_trunc_normal_(
+            torch.empty(in_features, features, kernel, kernel), 2.0, kernel * kernel * in_features,
+            generator))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = F.conv_transpose2d(nhwc_to_nchw(x), self.weight.to(x.dtype), self.bias.to(x.dtype),
+                               self.stride)
+        return nchw_to_nhwc(y)
+
+
+class Dense(nn.Module):
+    """flax's `nn.Dense`: lecun_normal kernel (truncated, fan_in = in), zero
+    bias.  The weight is torch's (out, in); flax's kernel is (in, out)."""
+
+    def __init__(self, in_features: int, features: int, generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(_trunc_normal_(
+            torch.empty(features, in_features), 1.0, in_features, generator))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
 class BatchNorm(nn.BatchNorm2d):
     """Keras-default BatchNormalization on NHWC (eps 1e-3, momentum 0.99).
 
@@ -151,7 +216,8 @@ class BatchNorm(nn.BatchNorm2d):
     clipped at 0 (biased), `y = (x - mean) * (rsqrt(var + eps) * scale) +
     bias`, and the running statistics move by `running = 0.99 * running +
     0.01 * batch` with that same biased variance (torch's own layer would
-    use the unbiased one).  `momentum=None` keeps torch's cumulative average (factor
+    use the unbiased one), except under `running_stats_frozen()`.
+    `momentum=None` keeps torch's cumulative average (factor
     1 / num_batches_tracked).  Eval mode normalises with the running
     statistics.  Both return the input's dtype."""
 
@@ -164,12 +230,13 @@ class BatchNorm(nn.BatchNorm2d):
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
         mean = xf.mean(dim=(0, 1, 2))
         var = torch.clamp_min(xf.square().mean(dim=(0, 1, 2)) - mean.square(), 0.0)
-        with torch.no_grad():
-            self.num_batches_tracked.add_(1)
-            factor = (1.0 / float(self.num_batches_tracked) if self.momentum is None
-                      else self.momentum)
-            self.running_mean.mul_(1.0 - factor).add_(factor * mean)
-            self.running_var.mul_(1.0 - factor).add_(factor * var)
+        if not _STATS_FROZEN:
+            with torch.no_grad():
+                self.num_batches_tracked.add_(1)
+                factor = (1.0 / float(self.num_batches_tracked) if self.momentum is None
+                          else self.momentum)
+                self.running_mean.mul_(1.0 - factor).add_(factor * mean)
+                self.running_var.mul_(1.0 - factor).add_(factor * var)
         y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
         return y.to(x.dtype)
 
@@ -208,3 +275,8 @@ def zero_pad2d(x: torch.Tensor, pad: int | tuple = 1) -> torch.Tensor:
     else:
         ph, pw = pad
     return F.pad(x, (0, 0, pw[0], pw[1], ph[0], ph[1]))
+
+
+def upsample2x(x: torch.Tensor) -> torch.Tensor:
+    """Keras UpSampling2D() — nearest-neighbour 2x on NHWC."""
+    return x.repeat_interleave(2, dim=1).repeat_interleave(2, dim=2)

@@ -36,8 +36,7 @@ from jpeg_detection_resnet_ssd_torch.models.layers import (
 from jpeg_detection_resnet_ssd_torch.models.resnet import (
     BLOCK5,
     ResNetBlocks,
-    conv_block,
-    identity_block,
+    late_concat_specs,
 )
 from jpeg_detection_resnet_ssd_torch.utils.device import resolve_device
 
@@ -174,27 +173,11 @@ class _SSDNeckMixin(ResNetBlocks):
         return F.relu(self._modules[f"conv{idx}_2"](x))
 
 
-# The late-concat-RFA-thinner trunk of `ssd_custom`, in execution order.
-_Y_TRUNK = (  # 38x38, ends at the conv4_3 tap
-    conv_block(1, (256, 256, 384), 1, "a2", strides=1),
-    identity_block(2, (256, 256, 384), 1, "b2"),
-    identity_block(3, (256, 256, 384), 1, "c2"),
-    conv_block(3, (128, 128, 384), 2, "a3", strides=1),
-    identity_block(3, (128, 128, 384), 2, "b3"),
-    identity_block(3, (128, 128, 384), 2, "c3"),
-    identity_block(3, (128, 128, 384), 2, "d3"),
-)
-_Y_DOWN = (conv_block(3, (256, 256, 384), 2, "a4"),)  # -> 19x19
-_CBCR = (conv_block(1, (256, 256, 128), 2, "a5", strides=1),)
-_STAGE3 = (  # on concat(y, cbcr), ends at the conv3_3 tap
-    identity_block(3, (128, 128, 512), 3, "b"),
-    identity_block(3, (128, 128, 512), 3, "c"),
-    identity_block(3, (128, 128, 512), 3, "d"),
-)
-_STAGE4 = (  # -> 10x10, ends at the conv4_6 tap
-    conv_block(3, (256, 256, 1024), 4, "a"),
-    *(identity_block(3, (256, 256, 1024), 4, b) for b in "bcdef"),
-)
+# The late-concat-RFA-thinner trunk of `ssd_custom`, in execution order:
+# the Y trunk (38x38, ends at the conv4_3 tap), its stride-2 block (-> 19x19),
+# the CbCr block, stage 3 on concat(y, cbcr) (ends at the conv3_3 tap) and
+# stage 4 (-> 10x10, ends at the conv4_6 tap).
+_Y_TRUNK, _Y_DOWN, _CBCR, _STAGE3, _STAGE4 = late_concat_specs()
 
 
 class SSDResNetCustom(_SSDNeckMixin):
@@ -206,7 +189,8 @@ class SSDResNetCustom(_SSDNeckMixin):
       fc7(5x5x1024), conv6_2(3x3x256), conv9_2(1x1x256).
 
     Inputs: (y, cbcr) NHWC with y (B,38,38,64) and cbcr (B,19,19,128).
-    Parameters are float32; `dtype` is the compute dtype.
+    Parameters are float32; `dtype` is the compute dtype; `remat`
+    recomputes the bottleneck branches in the backward pass.
     """
 
     def __init__(
@@ -214,12 +198,14 @@ class SSDResNetCustom(_SSDNeckMixin):
         n_classes: int = 20,
         spec: AnchorSpec = AnchorSpec(),
         dtype: torch.dtype = torch.float32,
+        remat: bool = False,
         generator: torch.Generator | None = None,
     ):
         super().__init__()
         self.n_classes = n_classes
         self.spec = spec
         self.dtype = dtype
+        self.remat = remat
         g = generator
         self.bn_y_in = BatchNorm(64)
         c = self._add_blocks(64, _Y_TRUNK, g)

@@ -2,8 +2,7 @@
 device DCT augmentation chain.
 
 Kernel sources live in `csrc/` and are built by `_build` with nvcc at first
-use.  The names below are those the JAX package's `ops/__init__.py` exports,
-less its classification augments (ROADMAP A12).
+use.  The names below are those the JAX package's `ops/__init__.py` exports.
 """
 
 from jpeg_detection_resnet_ssd_torch.ops.batched_nms import (
@@ -29,7 +28,10 @@ from jpeg_detection_resnet_ssd_torch.ops.dct_augment import (
     dct_downscale_2x,
     dct_flip_horizontal,
     dct_flip_vertical,
+    dct_random_crop_flip,
     dct_random_photometric,
+    make_dct_classification_augment,
+    make_dct_classification_augment_v2,
 )
 from jpeg_detection_resnet_ssd_torch.ops.dct_detect_augment import (
     dct_detection_crop_flip,
@@ -75,11 +77,14 @@ __all__ = [
     "dct_flip_vertical",
     "dct_pixel_photometric",
     "dct_pixel_photometric_apply",
+    "dct_random_crop_flip",
     "dct_random_photometric",
     "dct_resample",
     "idct2_8x8",
     "interp_matrix",
     "jpeg_requantize",
+    "make_dct_classification_augment",
+    "make_dct_classification_augment_v2",
     "make_dct_detection_augment",
     "make_dct_detection_augment_v2",
     "make_dct_detection_augment_v3",

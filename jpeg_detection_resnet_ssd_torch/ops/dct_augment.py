@@ -13,17 +13,23 @@ Counterpart of the JAX package's `ops/dct_augment.py`, on `(..., H8, W8,
   * brightness/contrast and chroma hue/saturation: exact linear maps of the
     coefficients.
 
-The random photometric op is split into a host sampler
-(`sample_photometric`) and a deterministic apply (`dct_random_photometric_
-apply`); see `ops._draws`.  The classification augments of the JAX module
-(`dct_random_crop_flip`, `make_dct_classification_augment(_v2)`) come with
-the classification slice (ROADMAP A12).
+Every random op is split into a host sampler (`sample_photometric`,
+`sample_crop_flip`, `sample_classification_crop`) and a deterministic apply
+(`dct_random_photometric_apply`, ...); see `ops._draws`.  The classification
+augments `make_dct_classification_augment(_v2)` return a `DeviceAugment`,
+a trainer `augment_fn` `(batch, generator) -> batch` that moves the batch's
+planes to its device (CUDA unless `device="cpu"`), draws on the host,
+copies the draws once and applies.  Every horizontal flip is
+`ops.dct_flip.dct_flip_horizontal`, the CUDA kernel on the card: one launch
+for the luma map and one for the chroma map.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import functools
 import math
+from typing import Callable
 
 import numpy as np
 import torch
@@ -34,6 +40,8 @@ from jpeg_detection_resnet_ssd_torch.ops.dct_flip import (  # noqa: F401  (re-ex
     _signs_for,
     dct_flip_horizontal,
 )
+from jpeg_detection_resnet_ssd_torch.ops.dct_resize import INTERP_BILINEAR, dct_crop_resize
+from jpeg_detection_resnet_ssd_torch.utils.device import resolve_device
 
 # (-1)^u pattern, varying along rows of the 8x8 block
 _ROW_SIGNS = np.where((np.arange(64) // 8) % 2 == 0, 1.0, -1.0).astype(np.float32)
@@ -199,3 +207,173 @@ def dct_random_photometric(y, cbcr, generator=None, **kwargs):
     space with per-image parameters drawn on the host from `generator`."""
     draws = _draws.to_device(sample_photometric(y.shape[0], generator, **kwargs), y.device)
     return dct_random_photometric_apply(y, cbcr, draws)
+
+
+# ---------------------------------------------------------------------------
+# classification: crop + flip, random-resized crop, trainer augment_fns
+# ---------------------------------------------------------------------------
+
+def flip_where(flip: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
+    """Flip the images of a (B, H8, W8, C) map where `flip` (B,) is True
+    (one flip kernel launch for the whole map on the card)."""
+    return torch.where(flip[:, None, None, None], dct_flip_horizontal(blocks.contiguous()), blocks)
+
+
+def sample_crop_flip(batch_size: int, h8: int, w8: int, generator=None,
+                     out_y_blocks: int = 28) -> dict:
+    """A uniform 16-px-aligned crop offset (in chroma blocks) and a fair
+    flip per image."""
+    shape = (batch_size,)
+    return {
+        "y0": _draws.randint(generator, shape, 0, (h8 - out_y_blocks) // 2 + 1),
+        "x0": _draws.randint(generator, shape, 0, (w8 - out_y_blocks) // 2 + 1),
+        "flip": _draws.bernoulli(generator, 0.5, shape),
+    }
+
+
+def crop_flip_maps(y, cbcr, y0c, x0c, flip, out_y_blocks: int):
+    """Crop every image's (y, cbcr) at its chroma-block offset (y0c, x0c),
+    so luma and 4:2:0 chroma stay block-aligned, and flip where `flip`."""
+    out_cb = out_y_blocks // 2
+    yc = flip_where(flip, dct_crop_blocks(y, 2 * y0c, 2 * x0c, out_y_blocks, out_y_blocks))
+    cc = flip_where(flip, dct_crop_blocks(cbcr, y0c, x0c, out_cb, out_cb))
+    return yc, cc
+
+
+def dct_random_crop_flip_apply(y, cbcr, draws: dict, out_y_blocks: int = 28,
+                               out_cbcr_blocks: int = 14):
+    """Batched random 16-px-aligned crop + horizontal flip of oversized maps
+    y (B, H8, W8, 64), cbcr (B, H8/2, W8/2, 128) with the draws of
+    `sample_crop_flip`; returns (B, out_y, out_y, 64), (B, out_c, out_c, 128)."""
+    if out_y_blocks != 2 * out_cbcr_blocks:
+        raise ValueError("4:2:0 layout requires out_y_blocks = 2*out_cbcr_blocks")
+    return crop_flip_maps(y, cbcr, draws["y0"], draws["x0"], draws["flip"], out_y_blocks)
+
+
+def dct_random_crop_flip(y, cbcr, generator=None, out_y_blocks: int = 28,
+                         out_cbcr_blocks: int = 14):
+    """`dct_random_crop_flip_apply` with draws from `generator`."""
+    draws = _draws.to_device(
+        sample_crop_flip(y.shape[0], y.shape[1], y.shape[2], generator, out_y_blocks), y.device)
+    return dct_random_crop_flip_apply(y, cbcr, draws, out_y_blocks, out_cbcr_blocks)
+
+
+def sample_classification_crop(batch_size: int, h8: int, w8: int, generator=None,
+                               scale_range=(0.35, 1.0), ar_range=(0.75, 1.333),
+                               identity_prob: float = 0.2) -> dict:
+    """Draws of the v2 random-resized crop of an (h8, w8)-block source: per
+    image an area share U(scale_range) and an aspect ratio exp(U(log
+    ar_range)) give the crop's height and width (capped at the frame; the
+    full frame with p=identity_prob), U(0, 1) shares of the room left give
+    its corner, and a fair flip; (B,) each, in source pixels."""
+    shape = (batch_size,)
+    H, W = float(h8 * 8), float(w8 * 8)
+    log_lo, log_hi = math.log(ar_range[0]), math.log(ar_range[1])
+    area = _draws.uniform(generator, shape, *scale_range)
+    ar = torch.exp(_draws.uniform(generator, shape, log_lo, log_hi))
+    ident = _draws.bernoulli(generator, identity_prob, shape)
+    ch = torch.where(ident, H, torch.clamp_max(torch.sqrt(area / ar) * H, H))
+    cw = torch.where(ident, W, torch.clamp_max(torch.sqrt(area * ar) * W, W))
+    return {
+        "y0": _draws.uniform(generator, shape) * (H - ch),
+        "x0": _draws.uniform(generator, shape) * (W - cw),
+        "ch": ch,
+        "cw": cw,
+        "flip": _draws.bernoulli(generator, 0.5, shape),
+    }
+
+
+def dct_classification_crop_apply(y, cbcr, draws: dict, out_y_blocks: int = 28):
+    """Continuous random-resized crop + flip in coefficient space: each
+    image's crop [y0, y0 + ch) x [x0, x0 + cw) (source pixels; chroma at
+    half the coordinates) resized bilinearly to out_y_blocks by
+    `dct_crop_resize`, then flipped where `flip`."""
+    out_px = out_y_blocks * 8
+    y0, x0, ch, cw, flip = (draws[k] for k in ("y0", "x0", "ch", "cw", "flip"))
+    y_out = dct_crop_resize(y, y0, x0, ch, cw, out_px, out_px, interp_mode=INTERP_BILINEAR)
+    c_out = dct_crop_resize(cbcr, y0 / 2.0, x0 / 2.0, ch / 2.0, cw / 2.0, out_px // 2,
+                            out_px // 2, interp_mode=INTERP_BILINEAR)
+    return flip_where(flip, y_out), flip_where(flip, c_out)
+
+
+@dataclasses.dataclass(frozen=True)
+class DeviceAugment:
+    """A trainer `augment_fn`: `(batch, generator) -> batch`.
+
+    `sample(batch_size, h8, w8, generator)` draws on the host, `apply(batch,
+    draws)` runs the chain on the batch's device.  A call moves the batch's
+    "inputs" to `device` (a CPU batch does not quietly run the chain on the
+    CPU), copies the draws there at once and applies."""
+
+    sample: Callable[..., dict]
+    apply: Callable[[dict, dict], dict]
+    device: torch.device
+
+    def to_device(self, batch: dict) -> dict:
+        out = dict(batch)
+        out["inputs"] = tuple(torch.as_tensor(a, device=self.device) for a in batch["inputs"])
+        return out
+
+    def __call__(self, batch: dict, generator: torch.Generator | None = None) -> dict:
+        batch = self.to_device(batch)
+        b, h8, w8 = batch["inputs"][0].shape[:3]
+        return self.apply(batch, _draws.to_device(self.sample(b, h8, w8, generator), self.device))
+
+
+def _with_inputs(batch: dict, y, cbcr) -> dict:
+    out = dict(batch)
+    out["inputs"] = (y, cbcr)
+    return out
+
+
+def make_dct_classification_augment_v2(out_y_blocks: int = 28, scale_range=(0.35, 1.0),
+                                       ar_range=(0.75, 1.333), identity_prob: float = 0.2,
+                                       photometric: bool = True, device=None) -> DeviceAugment:
+    """Continuous random-resized-crop classification augment on `device`
+    (None means CUDA and raises without a card): per image a crop of area
+    share U(scale_range) and aspect ratio exp(U(log ar_range)) of the source
+    frame at a random position (the full frame with p=identity_prob),
+    resized to out_y_blocks, a random hflip, then the DCT photometric op.
+    Inputs (int16-shipped or float) are cast to float32 on the device."""
+    dev = resolve_device(device)
+
+    def sample(b, h8, w8, generator):
+        draws = {"crop": sample_classification_crop(b, h8, w8, generator, scale_range, ar_range,
+                                                    identity_prob)}
+        if photometric:
+            draws["photometric"] = sample_photometric(b, generator)
+        return draws
+
+    def apply(batch, draws):
+        y, cbcr = (a.float() for a in batch["inputs"])
+        y, cbcr = dct_classification_crop_apply(y, cbcr, draws["crop"], out_y_blocks)
+        if photometric:
+            y, cbcr = dct_random_photometric_apply(y, cbcr, draws["photometric"])
+        return _with_inputs(batch, y, cbcr)
+
+    return DeviceAugment(sample, apply, dev)
+
+
+def make_dct_classification_augment(out_y_blocks: int = 28, photometric: bool = True,
+                                    device=None) -> DeviceAugment:
+    """Batched random 16-px-aligned crop + hflip (+ DCT photometric) of
+    oversized maps (e.g. a 256-px packed corpus -> 224-px crops) on
+    `device` (None means CUDA and raises without a card); inputs cast to
+    float32 there."""
+    dev = resolve_device(device)
+
+    def sample(b, h8, w8, generator):
+        draws = {"crop": sample_crop_flip(b, h8, w8, generator, out_y_blocks)}
+        if photometric:
+            draws["photometric"] = sample_photometric(b, generator)
+        return draws
+
+    def apply(batch, draws):
+        y, cbcr = (a.float() for a in batch["inputs"])
+        y, cbcr = dct_random_crop_flip_apply(y, cbcr, draws["crop"], out_y_blocks,
+                                             out_y_blocks // 2)
+        if photometric:
+            y, cbcr = dct_random_photometric_apply(y, cbcr, draws["photometric"])
+        return _with_inputs(batch, y, cbcr)
+
+    return DeviceAugment(sample, apply, dev)

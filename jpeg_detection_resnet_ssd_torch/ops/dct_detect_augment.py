@@ -27,19 +27,20 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-from typing import Callable
 
 import numpy as np
 import torch
 
 from jpeg_detection_resnet_ssd_torch.ops import _draws
-from jpeg_detection_resnet_ssd_torch.ops.dct_augment import (
-    dct_crop_blocks,
+from jpeg_detection_resnet_ssd_torch.ops.dct_augment import (  # noqa: F401  (re-exported)
+    DeviceAugment,
+    crop_flip_maps,
     dct_downscale_2x,
     dct_random_photometric_apply,
+    flip_where,
+    sample_crop_flip,
     sample_photometric,
 )
-from jpeg_detection_resnet_ssd_torch.ops.dct_flip import dct_flip_horizontal
 from jpeg_detection_resnet_ssd_torch.ops.dct_resize import N_INTERP_MODES, dct_crop_resize, fma
 from jpeg_detection_resnet_ssd_torch.ops.jpeg_quant import jpeg_requantize
 from jpeg_detection_resnet_ssd_torch.ops.pixel_photometric import (
@@ -80,11 +81,6 @@ def _background_maps(y_shape, cbcr_shape, background, dtype, device=None):
     """Constant-color coefficient maps (luma, stacked CbCr), as broadcast views."""
     c_y, c_c = _background_blocks(tuple(background), dtype, torch.device(device or "cpu"))
     return c_y.expand(*y_shape), c_c.expand(*cbcr_shape)
-
-
-def _flip_where(flip: torch.Tensor, blocks: torch.Tensor) -> torch.Tensor:
-    """Flip the images of a (B, H8, W8, C) map where `flip` (B,) is True."""
-    return torch.where(flip[:, None, None, None], dct_flip_horizontal(blocks.contiguous()), blocks)
 
 
 def _first_true(mask: torch.Tensor) -> torch.Tensor:
@@ -207,9 +203,7 @@ def _rewrite_boxes(cls, xmin, ymin, xmax, ymax, flip, gt_mask, out_px: int):
 def _crop_flip(y, cbcr, gt, gt_mask, y0c, x0c, flip, out_y_blocks: int):
     """Crop every image's (y, cbcr) at its chroma-block offset (y0c, x0c),
     flip where `flip`, and rewrite the GT."""
-    out_cb = out_y_blocks // 2
-    yc = _flip_where(flip, dct_crop_blocks(y, 2 * y0c, 2 * x0c, out_y_blocks, out_y_blocks))
-    cc = _flip_where(flip, dct_crop_blocks(cbcr, y0c, x0c, out_cb, out_cb))
+    yc, cc = crop_flip_maps(y, cbcr, y0c, x0c, flip, out_y_blocks)
     dx = (16 * x0c).float()[:, None]
     dy = (16 * y0c).float()[:, None]
     new_gt, new_mask = _rewrite_boxes(
@@ -217,17 +211,6 @@ def _crop_flip(y, cbcr, gt, gt_mask, y0c, x0c, flip, out_y_blocks: int):
         flip, gt_mask, out_y_blocks * 8,
     )
     return yc, cc, new_gt, new_mask
-
-
-def sample_crop_flip(batch_size: int, h8: int, w8: int, generator=None,
-                     out_y_blocks: int = 38) -> dict:
-    """A uniform 16-px-aligned crop offset and a fair flip per image."""
-    shape = (batch_size,)
-    return {
-        "y0": _draws.randint(generator, shape, 0, (h8 - out_y_blocks) // 2 + 1),
-        "x0": _draws.randint(generator, shape, 0, (w8 - out_y_blocks) // 2 + 1),
-        "flip": _draws.bernoulli(generator, 0.5, shape),
-    }
 
 
 def dct_detection_crop_flip_apply(y, cbcr, gt, gt_mask, draws: dict, out_y_blocks: int = 38):
@@ -375,7 +358,7 @@ def dct_detection_random_resized_crop_apply(y, cbcr, gt, gt_mask, draws: dict,
     c_out = dct_crop_resize(cbcr, ry0 / 2.0, rx0 / 2.0, hh / 2.0, ww / 2.0,
                             out_px // 2, out_px // 2, background=(bg_cb, bg_cr),
                             interp_mode=mode)
-    y_out, c_out = _flip_where(flip, y_out), _flip_where(flip, c_out)
+    y_out, c_out = flip_where(flip, y_out), flip_where(flip, c_out)
 
     sx = (out_px / ww)[:, None]
     sy = (out_px / hh)[:, None]
@@ -405,29 +388,15 @@ def dct_detection_random_resized_crop(y, cbcr, gt, gt_mask, generator=None,
 # ---------------------------------------------------------------------------
 
 @dataclasses.dataclass(frozen=True)
-class DetectionAugment:
-    """A trainer `augment_fn`: `(batch, generator) -> batch`.
-
-    `sample(batch_size, h8, w8, generator)` draws on the host, `apply(batch,
-    draws)` runs the chain on the batch's device.  A call moves the batch's
-    "inputs", "gt" and "gt_mask" to `device` (a CPU batch does not quietly
-    run the chain on the CPU), copies the draws there at once and applies."""
-
-    sample: Callable[..., dict]
-    apply: Callable[[dict, dict], dict]
-    device: torch.device
+class DetectionAugment(DeviceAugment):
+    """A `DeviceAugment` whose calls also move the batch's "gt" and
+    "gt_mask" to its device."""
 
     def to_device(self, batch: dict) -> dict:
-        out = dict(batch)
-        out["inputs"] = tuple(torch.as_tensor(a, device=self.device) for a in batch["inputs"])
+        out = super().to_device(batch)
         out["gt"] = torch.as_tensor(batch["gt"], dtype=torch.float32, device=self.device)
         out["gt_mask"] = torch.as_tensor(batch["gt_mask"], dtype=torch.bool, device=self.device)
         return out
-
-    def __call__(self, batch: dict, generator: torch.Generator | None = None) -> dict:
-        batch = self.to_device(batch)
-        b, h8, w8 = batch["inputs"][0].shape[:3]
-        return self.apply(batch, _draws.to_device(self.sample(b, h8, w8, generator), self.device))
 
 
 def _with(batch: dict, y, cbcr, gt, mask) -> dict:

@@ -3,6 +3,7 @@
 from jpeg_detection_resnet_ssd_torch.train.checkpoints import CheckpointManager, CSVLogger
 from jpeg_detection_resnet_ssd_torch.train.config import ExperimentConfig
 from jpeg_detection_resnet_ssd_torch.train.loop import (
+    BF16MomentumSGD,
     NaNLossError,
     build_optimizer,
     build_trainer,
@@ -15,9 +16,15 @@ from jpeg_detection_resnet_ssd_torch.train.schedules import (
     keras_inverse_time_decay,
     warmup_linear_scaling,
 )
-from jpeg_detection_resnet_ssd_torch.train.trainer import Trainer, detection_loss_fn, step_generator
+from jpeg_detection_resnet_ssd_torch.train.trainer import (
+    Trainer,
+    classification_loss_fn,
+    detection_loss_fn,
+    step_generator,
+)
 
 __all__ = [
+    "BF16MomentumSGD",
     "CSVLogger",
     "CheckpointManager",
     "ExperimentConfig",
@@ -26,6 +33,7 @@ __all__ = [
     "Trainer",
     "build_optimizer",
     "build_trainer",
+    "classification_loss_fn",
     "detection_loss_fn",
     "fit",
     "keras_inverse_time_decay",

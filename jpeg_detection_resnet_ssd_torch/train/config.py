@@ -48,7 +48,8 @@ class ExperimentConfig:
     # params stay float32; 'bfloat16' computes the forward and backward in
     # bf16, 'float32' reproduces the reference's numerics.
     compute_dtype: str = "bfloat16"  # 'float32' | 'bfloat16'
-    # Momentum accumulator dtype; 'bfloat16' is not ported (ROADMAP A15).
+    # Momentum accumulator dtype: 'bfloat16' stores the momentum in bf16
+    # (half its memory and traffic; the trace rounds to bf16 each step).
     momentum_dtype: str = "float32"  # 'float32' | 'bfloat16'
     # In this package: route the filter gradient of every eligible 3x3
     # stride-1 SAME conv (and of the SSD head) through the CUDA kernel
@@ -56,7 +57,7 @@ class ExperimentConfig:
     # library's convolutions.  The name is the JAX package's, so a
     # saved_config.json reads the same in both packages.
     pallas_wgrad: bool = False
-    remat: bool = False  # recompute bottleneck branches; not ported (ROADMAP A15)
+    remat: bool = False  # recompute bottleneck branches in the backward (memory)
     # Train with BatchNorm frozen: eval-mode normalisation with the running
     # statistics, which stay untouched (fine-tuning from imported weights).
     freeze_bn: bool = False

@@ -1,11 +1,11 @@
 """The training loop: epochs, logging, checkpoints, NaN guard, restart.
 
 Counterpart of the JAX package's `train/loop.py` (`build_optimizer`,
-`build_trainer`, `fit`, `make_validation_fn`), on one device.  What the JAX
-package adds for meshes and memory is not ported yet and raises
-`NotImplementedError` naming its ROADMAP item: `n_model_shards > 1` (A13),
-`momentum_dtype="bfloat16"` and `remat` (A15); so does the classification
-task (A12).
+`build_trainer`, `fit`, `make_validation_fn`), on one device, for the
+detection and the classification task, with the memory levers
+`momentum_dtype="bfloat16"` and `remat`.  What the JAX package adds for
+meshes is not ported yet and raises `NotImplementedError` naming its
+ROADMAP item: `n_model_shards > 1` (A13).
 """
 
 from __future__ import annotations
@@ -28,7 +28,11 @@ from jpeg_detection_resnet_ssd_torch.train.schedules import (
     keras_inverse_time_decay,
     warmup_linear_scaling,
 )
-from jpeg_detection_resnet_ssd_torch.train.trainer import Trainer, detection_loss_fn
+from jpeg_detection_resnet_ssd_torch.train.trainer import (
+    Trainer,
+    classification_loss_fn,
+    detection_loss_fn,
+)
 from jpeg_detection_resnet_ssd_torch.utils.device import resolve_device
 
 _COMPUTE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -52,47 +56,88 @@ def _schedule_value(config: ExperimentConfig, step: int, n_replicas: int = 1) ->
     return float(_make_schedule(config, n_replicas)(step))
 
 
-def build_optimizer(config: ExperimentConfig, params, n_replicas: int = 1) -> torch.optim.SGD:
+class BF16MomentumSGD(torch.optim.Optimizer):
+    """SGD with momentum whose buffer is kept in bfloat16 while the
+    parameters stay float32: optax's `trace(accumulator_dtype=bfloat16)`
+    then `scale_by_learning_rate`, as the JAX package's compiled step runs
+    them.  With t the stored bf16 trace and d the momentum rounded to bf16
+    (JAX's weak typing rounds the Python float to the trace's dtype):
+
+        new = g + d * t                  (float32; XLA keeps the product
+                                          in float32 inside the fused update)
+        update = new, or g + momentum * new with nesterov
+        p += -lr * update;  t = new rounded to bf16
+
+    The first step's trace is zero, so it updates by g."""
+
+    def __init__(self, params, lr: float, momentum: float = 0.9, nesterov: bool = False):
+        super().__init__(params, {"lr": lr, "momentum": momentum, "nesterov": nesterov})
+
+    @torch.no_grad()
+    def step(self, closure=None):
+        if closure is not None:
+            raise ValueError("BF16MomentumSGD takes no closure")
+        for group in self.param_groups:
+            momentum = group["momentum"]
+            decay = float(torch.tensor(momentum, dtype=torch.bfloat16))
+            for p in group["params"]:
+                if p.grad is None:
+                    continue
+                g = p.grad
+                state = self.state[p]
+                trace = state.get("momentum_buffer")
+                # (a restored buffer comes back as float32 holding bf16 values)
+                new = g.clone() if trace is None else g + trace.float() * decay
+                update = g + momentum * new if group["nesterov"] else new
+                p.add_(update * -group["lr"])
+                state["momentum_buffer"] = new.to(torch.bfloat16)
+        return None
+
+
+def build_optimizer(config: ExperimentConfig, params, n_replicas: int = 1) -> torch.optim.Optimizer:
     """SGD with momentum over `params`, at the schedule's step-0 lr (the
-    trainer sets each step's lr).  torch's SGD with dampening 0 keeps
-    buf = g + momentum * buf (buf = g at the first step) and updates by
-    -lr * buf, or by -lr * (g + momentum * buf) with nesterov: optax.sgd's
-    trace and update, so the two packages take the same steps."""
+    trainer sets each step's lr).  With a float32 momentum, torch's SGD with
+    dampening 0 keeps buf = g + momentum * buf (buf = g at the first step)
+    and updates by -lr * buf, or by -lr * (g + momentum * buf) with
+    nesterov: optax.sgd's trace and update, so the two packages take the
+    same steps.  `momentum_dtype="bfloat16"` is `BF16MomentumSGD`, optax's
+    `accumulator_dtype=bfloat16`."""
+    lr = _schedule_value(config, 0, n_replicas)
+    if config.momentum_dtype == "bfloat16":
+        return BF16MomentumSGD(params, lr=lr, momentum=config.momentum, nesterov=config.nesterov)
     if config.momentum_dtype != "float32":
-        raise NotImplementedError(
-            f"momentum_dtype={config.momentum_dtype!r} is not ported to PyTorch yet (ROADMAP A15)"
-        )
-    return torch.optim.SGD(
-        params,
-        lr=_schedule_value(config, 0, n_replicas),
-        momentum=config.momentum,
-        nesterov=config.nesterov,
-    )
+        raise ValueError(f"momentum_dtype must be 'float32' or 'bfloat16', got {config.momentum_dtype!r}")
+    return torch.optim.SGD(params, lr=lr, momentum=config.momentum, nesterov=config.nesterov)
 
 
 def build_trainer(config: ExperimentConfig, target_encoder=None, augment_fn=None,
                   device: str | torch.device | None = None):
     """(Trainer, module, example_inputs) for `config` on `device` (None means
     CUDA and raises without a card).  Weights are the port's init from
-    `torch.Generator` seeded `config.seed`."""
+    `torch.Generator` seeded `config.seed`.  The detection task trains with
+    the SSD loss and the selective L2 penalty; the classification task with
+    the cross-entropy and top-1/top-5 metrics, no L2 term (as in the JAX
+    package)."""
     dev = resolve_device(device)
     if config.n_model_shards > 1:
         raise NotImplementedError("n_model_shards > 1 is not ported to PyTorch yet (ROADMAP A13)")
-    if config.remat or config.momentum_dtype != "float32":
-        raise NotImplementedError(
-            "remat and a bfloat16 momentum are not ported to PyTorch yet (ROADMAP A15)"
-        )
-    if config.task != "detection":
-        raise NotImplementedError(f"task {config.task!r} is not ported to PyTorch yet (ROADMAP A12)")
+    if config.task not in ("detection", "classification"):
+        raise ValueError(f"unknown task {config.task!r}")
     model_kwargs = dict(config.model_kwargs)
     model_kwargs.setdefault("dtype", _COMPUTE_DTYPES[config.compute_dtype])
+    if config.remat:
+        model_kwargs.setdefault("remat", True)
     module, example_inputs = build_model(
         config.model, device=dev, generator=torch.Generator().manual_seed(config.seed),
         **model_kwargs,
     )
+    if config.task == "detection":
+        loss_fn = detection_loss_fn(SSDLoss(), l2_scale=config.l2_regularization)
+    else:
+        loss_fn = classification_loss_fn()
     trainer = Trainer(
         model=module,
-        loss_fn=detection_loss_fn(SSDLoss(), l2_scale=config.l2_regularization),
+        loss_fn=loss_fn,
         optimizer=build_optimizer(config, module.parameters()),
         schedule=_make_schedule(config),
         target_encoder=target_encoder,
@@ -219,18 +264,19 @@ def fit(
 
 
 def make_validation_fn(trainer: Trainer | None, val_pipeline):
-    """Per-epoch validation hook for `fit(val_fn=...)`: the mean SSD loss of
-    the eval-mode model over `val_pipeline` (batches with "targets", or
-    padded GT and a trainer with a target encoder).
+    """Per-epoch validation hook for `fit(val_fn=...)`: the eval-mode model
+    over `val_pipeline`, the mean over batches of the SSD loss (batches with
+    "targets", or padded GT and a trainer with a target encoder) or of the
+    cross-entropy, top-1 and top-5 (batches with "labels").
 
     The hook evaluates the trainer it is called with, as the JAX package's
     hook evaluates the state it is handed; so it can be made before `fit`
     builds its trainer (`trainer` is the JAX signature's and may be None)."""
-    ssd_loss = SSDLoss()
+    ssd_loss, cls_metrics = SSDLoss(), classification_loss_fn()
 
     def val_fn(current: Trainer) -> dict:
         eval_apply = current.eval_step()
-        losses = []
+        rows = []
         for batch in val_pipeline:
             if "targets" in batch:
                 targets = torch.as_tensor(batch["targets"], device=current.device)
@@ -238,10 +284,13 @@ def make_validation_fn(trainer: Trainer | None, val_pipeline):
                 with torch.no_grad():
                     targets = current.target_encoder(batch["gt"], batch["gt_mask"])
             else:
-                raise NotImplementedError(
-                    "classification validation is not ported to PyTorch yet (ROADMAP A12)"
-                )
-            losses.append(float(ssd_loss(targets, eval_apply(batch["inputs"]))))
-        return {"loss": sum(losses) / len(losses)} if losses else {}
+                labels = torch.as_tensor(batch["labels"], device=current.device)
+                _, metrics = cls_metrics(None, eval_apply(batch["inputs"]), {"labels": labels})
+                rows.append({k: float(v) for k, v in metrics.items()})
+                continue
+            rows.append({"loss": float(ssd_loss(targets, eval_apply(batch["inputs"])))})
+        if not rows:
+            return {}
+        return {k: sum(r[k] for r in rows) / len(rows) for k in rows[0]}
 
     return val_fn

@@ -1,18 +1,21 @@
-"""The train step: target encoding, forward, SSD loss, backward, SGD.
+"""The train step: target encoding, forward, loss, backward, SGD.
 
-Counterpart of the JAX package's `train/trainer.py`.  The JAX step is a pure
-function `(state, batch, rng) -> (state, metrics)` compiled once; here the
-`Trainer` owns an `nn.Module` and a `torch.optim` optimizer and steps them
-in place, in the JAX step's order:
+Counterpart of the JAX package's `train/trainer.py`, for detection (SSD
+loss + selective L2) and classification (cross-entropy, top-1/top-5).  The
+JAX step is a pure function `(state, batch, rng) -> (state, metrics)`
+compiled once; here the `Trainer` owns an `nn.Module` and a `torch.optim`
+optimizer and steps them in place, in the JAX step's order:
 
-  augment hook -> target encoding (when the batch carries padded GT) ->
-  train-mode forward (with `freeze_bn`: eval-mode forward, statistics
-  untouched) -> loss + selective L2 -> backward -> SGD update -> step + 1.
+  augment hook -> target encoding (when the batch carries padded GT; a
+  classification batch carries int "labels") -> train-mode forward (with
+  `freeze_bn`: eval-mode forward, statistics untouched) -> loss (+ the
+  detector's selective L2) -> backward -> SGD update -> step + 1.
 
 `pallas_wgrad` scopes `models.layers.pallas_wgrad` to the step's forward,
-so two trainers in one process can differ.  `ssd_custom` has no dropout; the generator passed to a
-step reaches only the augment hook.  Step s of a run seeded `seed` draws
-from `step_generator(seed, s)`, whether it runs alone or in `train_steps`.
+so two trainers in one process can differ.  The ported models have no
+dropout; the generator passed to a step reaches only the augment hook.
+Step s of a run seeded `seed` draws from `step_generator(seed, s)`, whether
+it runs alone or in `train_steps`.
 """
 
 from __future__ import annotations
@@ -23,7 +26,12 @@ from typing import Callable
 import torch
 from torch import nn
 
-from jpeg_detection_resnet_ssd_torch.losses import SSDLoss, l2_regularization_loss
+from jpeg_detection_resnet_ssd_torch.losses import (
+    SSDLoss,
+    l2_regularization_loss,
+    softmax_cross_entropy,
+    top_k_accuracy,
+)
 from jpeg_detection_resnet_ssd_torch.models import layers
 from jpeg_detection_resnet_ssd_torch.utils.device import resolve_device
 
@@ -59,12 +67,31 @@ def detection_loss_fn(ssd_loss: SSDLoss = SSDLoss(), l2_scale: float = 5e-4):
     return fn
 
 
+def classification_loss_fn():
+    """(model, logits, batch) -> (loss, metrics) for classification:
+    `softmax_cross_entropy` on one-hot batch["labels"], no penalty term;
+    metrics loss, top1, top5."""
+
+    def fn(model, outputs, batch):
+        labels = batch["labels"]
+        onehot = torch.nn.functional.one_hot(labels.long(), outputs.shape[-1]).float()
+        loss = softmax_cross_entropy(outputs, onehot)
+        return loss, {
+            "loss": loss,
+            "top1": top_k_accuracy(outputs, labels, 1),
+            "top5": top_k_accuracy(outputs, labels, 5),
+        }
+
+    return fn
+
+
 @dataclasses.dataclass(eq=False)
 class Trainer:
     """Owns one model's train and eval steps.
 
     Args:
-      model: module whose forward takes `batch["inputs"]`.
+      model: module whose forward takes `batch["inputs"]` (a tuple of
+        planes, or one image array).
       loss_fn: (model, outputs, batch) -> (scalar, metrics dict).
       optimizer: a torch optimizer over the model's parameters.
       schedule: step -> lr, applied before each update (None: keep the
@@ -93,14 +120,21 @@ class Trainer:
     def _as_device(self, x):
         return torch.as_tensor(x, device=self.device)
 
+    def _inputs(self, inputs):
+        if isinstance(inputs, (tuple, list)):
+            return tuple(self._as_device(a) for a in inputs)
+        return self._as_device(inputs)
+
     def train_step(self, batch: dict, generator: torch.Generator | None = None) -> dict:
         """One optimisation step; returns 0-dim metric tensors on the device
         (reading them synchronises, so the loop reads them rarely)."""
         if self.augment_fn is not None:
             batch = self.augment_fn(batch, generator)
         batch = dict(batch)
-        inputs = tuple(self._as_device(a) for a in batch["inputs"])
-        if self.target_encoder is not None and "targets" not in batch:
+        inputs = self._inputs(batch["inputs"])
+        if "labels" in batch:
+            batch["labels"] = self._as_device(batch["labels"])
+        elif self.target_encoder is not None and "targets" not in batch:
             with torch.no_grad():
                 batch["targets"] = self.target_encoder(batch.pop("gt"), batch.pop("gt_mask"))
         else:
@@ -136,6 +170,6 @@ class Trainer:
         def step(inputs):
             self.model.eval()
             with torch.no_grad():
-                return self.model(tuple(self._as_device(a) for a in inputs))
+                return self.model(self._inputs(inputs))
 
         return step

@@ -307,3 +307,83 @@ def test_packed_pipeline_through_prefetch_lands_on_the_card(cuda, tmp_path, ship
         for a, b in zip((*g["inputs"], g["gt"], g["gt_mask"]), (*w["inputs"], w["gt"], w["gt_mask"])):
             assert a.is_cuda
             np.testing.assert_array_equal(a.cpu().numpy(), b)
+
+
+# The 3x3 stride-1 convs of the classifiers at 224 px, (H, C, K): the DCT
+# stems (late_concat_rfa_thinner: 28x28 256/128, 14x14 256/128, 7x7 256,
+# 4x4 512) and resnet50_rgb (56x56 64, 7x7 512).
+CLS_WGRAD_SHAPES = [(28, 256, 256), (28, 128, 128), (14, 256, 256), (14, 128, 128),
+                    (7, 256, 256), (4, 512, 512), (56, 64, 64), (7, 512, 512)]
+
+
+@pytest.mark.parametrize("h,c,k", CLS_WGRAD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_filter_grad_kernel_at_the_classification_shapes(cuda, h, c, k, dtype):
+    """The small maps (7x7, 4x4: a stage box wider than the map) and the
+    RGB stem's 56x56 64-channel conv, at batch 8: within 1e-4 of the
+    largest value, and a second call bit-identical."""
+    gen = torch.Generator(device="cpu").manual_seed(h * 1000 + c)
+    x = torch.randn(8, h, h, c, generator=gen).to(cuda, dtype)
+    dy = torch.randn(8, h, h, k, generator=gen).to(cuda, dtype)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan = conv_grad.tiling_plan(8, h, h, c, k)
+    assert plan.w_box >= h and plan.stage_rows % 16 == 0
+    before = conv_grad.LAUNCHES
+    got = conv_grad.conv3x3_filter_grad(x, dy)
+    torch.cuda.synchronize()
+    assert conv_grad.LAUNCHES == before + 1
+    ref = conv_grad.conv3x3_filter_grad_reference(x, dy)
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(conv_grad.conv3x3_filter_grad(x, dy).view(torch.int32), got.view(torch.int32))
+
+
+@pytest.mark.parametrize("version", ["v1", "v2"])
+def test_classification_augment_on_the_card_equals_the_cpu(cuda, version):
+    """The classification augments' apply with one set of host draws, on the
+    card (B3, two launches, TF32 off) and on the CPU (plain versions):
+    coefficients within 1e-5 of the largest CPU value."""
+    from jpeg_detection_resnet_ssd_torch.ops.dct_augment import (
+        make_dct_classification_augment,
+        make_dct_classification_augment_v2,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    maker = make_dct_classification_augment if version == "v1" else make_dct_classification_augment_v2
+    out = 28 if version == "v1" else 8
+    rng = np.random.default_rng(7)
+    batch = {"inputs": (rng.normal(0, 100, (4, 32, 32, 64)).astype(np.int16),
+                        rng.normal(0, 30, (4, 16, 16, 128)).astype(np.int16)),
+             "labels": np.arange(4, dtype=np.int32)}
+    gpu, cpu = maker(out), maker(out, device="cpu")
+    draws = cpu.sample(4, 32, 32, torch.Generator().manual_seed(1))
+    before = dct_flip.LAUNCHES
+    got = gpu.apply(gpu.to_device(batch), _draws.to_device(draws, cuda))
+    torch.cuda.synchronize()
+    assert dct_flip.LAUNCHES == before + 2
+    ref = cpu.apply(cpu.to_device(batch), draws)
+    for a, b in zip(got["inputs"], ref["inputs"]):
+        assert a.is_cuda and a.dtype == torch.float32
+        assert float((a.cpu() - b).abs().max()) <= 1e-5 * float(b.abs().max())
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_classification_step_launches_b4_and_b3(cuda, remat):
+    """One bf16 classification step of resnet50_dct_late_concat_rfa_thinner
+    on 16-block maps with the v2 augment: 18 filter gradients on B4 (the
+    recompute keeps the switch) and 2 flips on B3; the loss is finite."""
+    from jpeg_detection_resnet_ssd_torch.ops.dct_augment import make_dct_classification_augment_v2
+    from jpeg_detection_resnet_ssd_torch.train import ExperimentConfig, build_trainer
+
+    trainer, _, _ = build_trainer(ExperimentConfig(
+        model="resnet50_dct_late_concat_rfa_thinner", task="classification", pallas_wgrad=True,
+        remat=remat, momentum_dtype="bfloat16" if remat else "float32",
+        model_kwargs={"num_classes": 10}), augment_fn=make_dct_classification_augment_v2(8))
+    rng = np.random.default_rng(2)
+    batch = {"inputs": (rng.normal(0, 100, (4, 12, 12, 64)).astype(np.int16),
+                        rng.normal(0, 30, (4, 6, 6, 128)).astype(np.int16)),
+             "labels": rng.integers(0, 10, 4).astype(np.int32)}
+    conv_grad.LAUNCHES = dct_flip.LAUNCHES = 0
+    metrics = trainer.train_step(batch, torch.Generator().manual_seed(0))
+    torch.cuda.synchronize()
+    assert (conv_grad.LAUNCHES, dct_flip.LAUNCHES) == (18, 2)
+    assert np.isfinite(float(metrics["loss"]))

@@ -138,6 +138,13 @@ def test_verbose_report_line(h5_case, capsys):
 
 
 def test_transposed_convolutions_name_their_roadmap_item(h5_case):
-    with pytest.raises(NotImplementedError, match="A12"):
-        import_weights_by_name(copy.deepcopy(h5_case["fresh"]), h5_case["path"],
-                               transpose_conv_layers=("fc7_mbox_loc",))
+    """A layer named in `transpose_conv_layers` has its kernel's in and out
+    axes swapped first, as the JAX importer does; a plain conv's kernel then
+    no longer fits, and both importers report it mismatched."""
+    layers = ("fc7_mbox_loc", "conv4_3_norm_mbox_conf_21")
+    port, report = import_weights_by_name(copy.deepcopy(h5_case["fresh"]), h5_case["path"],
+                                          transpose_conv_layers=layers)
+    _, jax_report = jax_h5.import_weights_by_name(h5_case["start"], h5_case["path"],
+                                                  transpose_conv_layers=layers)
+    assert report == jax_report
+    assert sorted(report["mismatched"]) == sorted(layers)

@@ -15,6 +15,8 @@ import jpeg_detection_resnet_ssd_torch as port
 from jpeg_detection_resnet_ssd_torch.models import build_model, make_inference_fn
 from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
 from jpeg_detection_resnet_ssd_torch.ops import (
+    make_dct_classification_augment,
+    make_dct_classification_augment_v2,
     make_dct_detection_augment,
     make_dct_detection_augment_v2,
     make_dct_detection_augment_v3,
@@ -40,10 +42,13 @@ def import_every_module_without(blocked):
     `blocked` cannot be imported; fails if one is needed or if anything of
     the JAX package is imported."""
     mods = [port.__name__, *port_modules()]
-    assert len(mods) >= 55
+    assert len(mods) >= 56
     assert {"jpeg_detection_resnet_ssd_torch.cli.main", "jpeg_detection_resnet_ssd_torch.dctjpeg",
             "jpeg_detection_resnet_ssd_torch.data.pipeline", "jpeg_detection_resnet_ssd_torch.data.packed",
-            "jpeg_detection_resnet_ssd_torch.data.augment"} <= set(mods)
+            "jpeg_detection_resnet_ssd_torch.data.augment", "jpeg_detection_resnet_ssd_torch.models.resnet",
+            "jpeg_detection_resnet_ssd_torch.models.zoo", "jpeg_detection_resnet_ssd_torch.eval.imagenet_eval",
+            "jpeg_detection_resnet_ssd_torch.ops.dct_augment",
+            "jpeg_detection_resnet_ssd_torch.losses.classification"} <= set(mods)
     code = (
         "import sys\n"
         f"for name in {blocked!r}:\n"
@@ -60,6 +65,14 @@ def import_every_module_without(blocked):
         "from jpeg_detection_resnet_ssd_torch.cli import main\n"
         "args = main.build_parser().parse_args(['train-detect', '--voc-root', 'v', '--device-augment'])\n"
         "assert args.fn is main.cmd_train_detect\n"
+        "args = main.build_parser().parse_args(['train-classify', '--train-dir', 't', '--device-augment'])\n"
+        "assert args.fn is main.cmd_train_classify\n"
+        "args = main.build_parser().parse_args(['evaluate-classify', '--run-dir', 'r', '--val-dir', 'v'])\n"
+        "assert args.fn is main.cmd_evaluate_classify\n"
+        # the classifiers build on the CPU without jax, PIL, cv2 or h5py
+        "from jpeg_detection_resnet_ssd_torch.models import build_model\n"
+        "for name in ('resnet50_rgb', 'resnet50_dct_deconv'):\n"
+        "    build_model(name, num_classes=3, device='cpu')\n"
         "bad = [m for m in sys.modules if m.startswith('jpeg_detection_resnet_ssd_tpu')]\n"
         "assert not bad, bad\n"
         "print('ok')\n"
@@ -119,6 +132,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         build_model("ssd300_ssd_custom", n_classes=20)
     with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_model("resnet50_dct_cb5_only", num_classes=10)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_trainer(ExperimentConfig(model="resnet50_rgb", task="classification"))
+    from jpeg_detection_resnet_ssd_torch.data import DeviceDCTAugmentedPipeline
+
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceDCTAugmentedPipeline([], 2)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         make_inference_fn(n_classes=20, spec=AnchorSpec())
     with pytest.raises(RuntimeError, match="needs a CUDA device"):
         cuda_times_ms(lambda: None)
@@ -132,13 +153,14 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Trainer(model, None, torch.optim.SGD(model.parameters(), lr=0.1))
     for maker in (make_dct_detection_augment, make_dct_detection_augment_v2,
-                  make_dct_detection_augment_v3):
+                  make_dct_detection_augment_v3, make_dct_classification_augment,
+                  make_dct_classification_augment_v2):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             maker(38)
 
 
 def test_unported_models_name_their_roadmap_item():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(NotImplementedError, match="ROADMAP A12b"):
         build_model("ssd300_vgg", device="cpu")
     with pytest.raises(ValueError, match="unknown model"):
         build_model("no_such_model", device="cpu")

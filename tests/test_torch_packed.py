@@ -160,9 +160,27 @@ def test_load_or_create_raises_on_a_stale_cache_as_jax_does(voc, corpora, case):
     assert messages[0] == messages[1]
 
 
-def test_load_or_create_names_the_classification_item(voc, tmp_path):
-    with pytest.raises(NotImplementedError, match="A12"):
-        packed.load_or_create(str(tmp_path / "c"), voc[1], task="classification")
+def test_load_or_create_names_the_classification_item(tmp_path):
+    """`task="classification"` packs with `create_classification` once,
+    then loads, and a stale frame size raises as in the JAX package."""
+    from PIL import Image
+
+    rng = np.random.default_rng(8)
+    for c in ("a", "b"):
+        (tmp_path / "imgs" / c).mkdir(parents=True)
+        for j in range(2):
+            Image.fromarray(rng.integers(0, 255, (40, 56, 3), dtype=np.uint8)).save(
+                tmp_path / "imgs" / c / f"{j}.jpeg")
+    ds = data.ImageFolderDataset(str(tmp_path / "imgs"))
+    stem = str(tmp_path / "pack" / "cls")
+    corpus = packed.load_or_create(stem, ds, task="classification", img_size=32, num_workers=2)
+    assert corpus.meta["task"] == "classification" and list(corpus.labels) == [0, 0, 1, 1]
+    assert corpus.y.shape == (4, 4, 4, 64) and corpus.cbcr.shape == (4, 2, 2, 128)
+    again = packed.load_or_create(stem, ds, task="classification", img_size=32)
+    np.testing.assert_array_equal(again.y, corpus.y)
+    for module in (packed, jax_packed):
+        with pytest.raises(ValueError, match="img_size"):
+            module.load_or_create(stem, ds, task="classification", img_size=64)
 
 
 def test_prefetch_yields_the_pipeline_batches_in_order(corpora):

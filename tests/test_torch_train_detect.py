@@ -170,14 +170,14 @@ def test_device_augment_flag_errors(setup, extra, message):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--vgg"], "A12"), (["--archi", "deconv"], "A12"), (["--n-model-shards", "2"], "A13"),
+    (["--vgg"], "A12b"), (["--archi", "deconv"], "A12b"), (["--n-model-shards", "2"], "A13"),
     (["--pretrained-weights", "https://example.invalid/w.h5"], "A14"),
-    (["--pretrained-weights", "ssd300_voc07"], "A14"), (["--config", "bf16m.json"], "A15"),
+    (["--pretrained-weights", "ssd300_voc07"], "A14"), (["--config", "vgg.json"], "A12b"),
 ])
 def test_what_is_not_ported_names_its_roadmap_item(setup, extra, item):
-    cfg = setup["tmp"] / "bf16m.json"
-    cfg.write_text(ExperimentConfig(momentum_dtype="bfloat16").to_json())
-    extra = [str(cfg) if a == "bf16m.json" else a for a in extra]
+    cfg = setup["tmp"] / "vgg.json"
+    cfg.write_text(ExperimentConfig(model="ssd300_vgg", momentum_dtype="bfloat16").to_json())
+    extra = [str(cfg) if a == "vgg.json" else a for a in extra]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         port_cli.main(["train-detect", "--voc-root", str(setup["voc"]), "--device", "cpu",
                        "--output-dir", str(setup["tmp"] / "exp_np"), *extra])

@@ -139,3 +139,53 @@ def augment_v3(rng, b, h8, w8, photometric_mode=True):
         draws["photometric"] = (pixel_photometric if photometric_mode == "pixel_hsv"
                                 else photometric)(k1, b)
     return draws
+
+
+def cls_crop_flip(rng, b, h8, w8, out_y_blocks):
+    # ops/dct_augment.py::dct_random_crop_flip
+    k1, k2, k3 = jax.random.split(rng, 3)
+    return _numpy({
+        "y0": jax.random.randint(k1, (b,), 0, (h8 - out_y_blocks) // 2 + 1),
+        "x0": jax.random.randint(k2, (b,), 0, (w8 - out_y_blocks) // 2 + 1),
+        "flip": jax.random.bernoulli(k3, 0.5, (b,)),
+    })
+
+
+def cls_augment_v1(rng, b, h8, w8, out_y_blocks=28):
+    # ops/dct_augment.py::make_dct_classification_augment, photometric on
+    k1, k2 = jax.random.split(rng)
+    return {"crop": cls_crop_flip(k1, b, h8, w8, out_y_blocks), "photometric": photometric(k2, b)}
+
+
+@functools.partial(jax.jit, static_argnums=(1, 2, 3, 4, 5, 6))
+def _cls_crop_v2(rng, b, h8, w8, scale_range, ar_range, identity_prob):
+    # ops/dct_augment.py::make_dct_classification_augment_v2's crop draws and
+    # their derived values, jitted as the JAX train step compiles them (the
+    # un-jitted op rounds sqrt(area / ar) * H differently by an ulp)
+    H, W = jnp.float32(h8 * 8), jnp.float32(w8 * 8)
+    k1, k2, k3, k4, k5, k6, k7 = jax.random.split(rng, 7)
+    area = jax.random.uniform(k1, (b,), minval=scale_range[0], maxval=scale_range[1])
+    ar = jnp.exp(jax.random.uniform(k2, (b,), minval=jnp.log(ar_range[0]),
+                                    maxval=jnp.log(ar_range[1])))
+    ch = jnp.minimum(jnp.sqrt(area / ar) * H, H)
+    cw = jnp.minimum(jnp.sqrt(area * ar) * W, W)
+    ident = jax.random.bernoulli(k3, identity_prob, (b,))
+    ch = jnp.where(ident, H, ch)
+    cw = jnp.where(ident, W, cw)
+    crop = {
+        "y0": jax.random.uniform(k4, (b,)) * (H - ch),
+        "x0": jax.random.uniform(k5, (b,)) * (W - cw),
+        "ch": ch,
+        "cw": cw,
+        "flip": jax.random.bernoulli(k6, 0.5, (b,)),
+    }
+    return crop, k7, ident
+
+
+def cls_augment_v2(rng, b, h8, w8, scale_range=(0.35, 1.0), ar_range=(0.75, 1.333),
+                   identity_prob=0.2):
+    # ops/dct_augment.py::make_dct_classification_augment_v2, photometric on;
+    # "ident" (the full-frame draw) rides along for the distribution test
+    crop, k7, ident = _cls_crop_v2(rng, b, h8, w8, tuple(scale_range), tuple(ar_range),
+                                   identity_prob)
+    return {"crop": _numpy(crop), "photometric": photometric(k7, b), "ident": np.asarray(ident)}

@@ -6,7 +6,9 @@ a seed.  Unlike the init values (BatchNorm mean 0, var 1, scale 1, bias 0),
 every leaf gets distinct values, so a swapped or mis-transposed leaf in the
 weight bridge shows in the forward pass.  Scales are chosen to keep
 activations of a deep random ResNet in a moderate range: the input
-BatchNorms see the DCT planes' variance (Y ~ N(0, 100), CbCr ~ N(0, 30)),
+BatchNorms see the DCT planes' variance (Y ~ N(0, 100), CbCr ~ N(0, 30);
+`bn_in` the up-sampling stems' concat of both, `bn_conv1` the RGB model's
+first conv on 0-255 pixels),
 and the last BatchNorm of each residual branch (`*_branch2c`) has a small
 scale, so residual sums do not blow up over ~20 blocks.
 """
@@ -14,7 +16,7 @@ scale, so residual sums do not blow up over ~20 blocks.
 import jax
 import numpy as np
 
-_INPUT_SCALE = {"bn_y_in": 100.0, "bn_cbcr_in": 30.0}
+_INPUT_SCALE = {"bn_y_in": 100.0, "bn_cbcr_in": 30.0, "bn_in": 100.0, "bn_conv1": 150.0}
 
 
 def random_flax_variables(module, *args, seed=0, **kwargs):
