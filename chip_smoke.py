@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; one card, nvcc
 
-Six paths, the first five at the full width of `ssd300_ssd_custom`:
+Seven paths, the first five at the full width of `ssd300_ssd_custom`:
   * inference: `build_model` -> forward on seeded DCT planes ->
     `make_inference_fn` (candidate selection, batched greedy NMS on the CUDA
     kernel, global top-200) -> (B, 200, 6) detections;
@@ -31,7 +31,13 @@ Six paths, the first five at the full width of `ssd300_ssd_custom`:
     1000 classes from a NumPy-written 256-px corpus at batch 64 bf16, the
     v2 random-resized crop and flip (the flip kernel) in the step and every
     3x3 conv's filter gradient on the CUDA kernel, then `--restart`; and the
-    forward of every ResNet-50 of the registry.
+    forward of every ResNet-50 of the registry;
+  * the other families: `cli.main(["train-detect", "--vgg",
+    "--device-augment", "--pack-cache", ..., "--pallas-wgrad"])` training
+    `ssd300_vgg_dct` (the reference's DCT VGG SSD300) at full width and
+    depth at batch 32 bf16, then `--restart`, and `--archi y_cb4_cbcr_cb5`;
+    the forward of all 13 VGG and other SSD300 names; B4 on maps wider than
+    a stage (C3).
     The card's machine has no libjpeg, so no step decodes a JPEG here.
 
 Phases (any failure exits non-zero):
@@ -146,9 +152,28 @@ Phases (any failure exits non-zero):
      step) and `--restart` to 6; `ClassificationEvaluator` over the
      calibrated model, top-1/top-5 checked against its logits, images/s in
      float32 and bf16;
+ 9g. the other families (ROADMAP A12b): B4 at the VGG models' 30 conv
+     shapes (batch 32 detection, 64 classification; 300-, 224- and
+     150-column rows cut into column groups, C = 3 padded to 8), bf16 and
+     float32 within 1e-4 and bit-identical call to call, then timed per
+     shape against cuDNN and the bound; the forward of the 13 names at batch
+     2 in float32 (BatchNorm calibrated), card vs CPU within 1e-3 of the
+     largest output; `ssd300_vgg_dct`, `ssd300_vgg` and
+     `ssd300_y_cb4_cbcr_cb5` at batch 32 bf16 through the shared decode
+     (kernel NMS = plain NMS, one launch each); one float32 step at batch 2
+     card vs CPU for `ssd300_vgg_dct` and `vgga` (dropout masks from one
+     host generator; loss 1e-4, head gradients 1e-3, B4 13 and 8 launches);
+     `train-detect --vgg --device-augment --pack-cache --pallas-wgrad` from
+     phase 9e's corpus, 3 steps and `--restart` to 6 (B2 1, B3 2, B4 13 a
+     step, warm steps/s), and `--archi y_cb4_cbcr_cb5` for 3 steps (B4 20 a
+     step); the ssd300_vgg_dct bf16 step with B4 against cuDNN's dW in four
+     rotating rounds, and a profiler window;
  10. the `kernels` JSON line (B3's and B4's entries with a `classification`
      part: the train-classify run's launches and the per-step times at the
-     classification shapes), the card line, and the final JSON line.
+     classification shapes; every entry with a `vgg` part: the launches of
+     `train-detect --vgg`'s 3 steps (B1: of 9g's three decodes), and for B4
+     the per-step times at ssd300_vgg_dct's 13 shapes and the wide maps'),
+     the card line, and the final JSON line.
 
 Weights are the port's seeded init (torch.Generator seeded 0); for inference
 the BatchNorm running statistics are calibrated on the batch-32 request (one
@@ -330,17 +355,39 @@ def flip_bound(x: torch.Tensor) -> tuple[float, str]:
 def calibrate_batch_norm(model, inputs) -> None:
     """Set every BatchNorm's running statistics to those of `inputs` (one
     train-mode forward with a cumulative average), then return to eval."""
+    from jpeg_detection_resnet_ssd_torch.models import layers
+
     norms = [m for m in model.modules() if isinstance(m, torch.nn.BatchNorm2d)]
     saved = [m.momentum for m in norms]
     for m in norms:
         m.reset_running_stats()
         m.momentum = None
     model.train()
-    with torch.no_grad():
+    # (a VGG classifier's train-mode dropout draws from a generator; it
+    # comes after every BatchNorm, so it does not touch the statistics)
+    with torch.no_grad(), layers.dropout_rng(torch.Generator().manual_seed(0)):
         model(inputs)
     model.eval()
     for m, momentum in zip(norms, saved):
         m.momentum = momentum
+
+
+def scale_ssd_head(model, inputs) -> None:
+    """Scale a random SSD head so that, on `inputs`, its box offsets stay
+    within +-1 and its class logits within +-4: a seeded head over features
+    that no BatchNorm keeps in range (`ssd300_vgg` on 0-255 pixels) gives
+    offsets that overflow exp() into infinite boxes.  A predictor is a conv,
+    so scaling its weight and bias scales its outputs."""
+    n_total = model.head.n_classes + 1
+    with torch.no_grad():
+        raw = model(inputs).float()
+        for suffix, out, limit in (("_mbox_conf", raw[..., :n_total], 4.0),
+                                   ("_mbox_loc", raw[..., n_total:n_total + 4], 1.0)):
+            factor = limit / float(out.abs().max())
+            for name, conv in model.head.named_children():
+                if suffix in name:
+                    conv.weight.mul_(factor)
+                    conv.bias.mul_(factor)
 
 
 def check(cond: bool, what: str) -> None:
@@ -1867,6 +1914,276 @@ def run_classification(dev, card):
              "library_ms": None, "shapes": [list(x.shape) for x in out["inputs"]]})
 
 
+# Phase 9g: the other model families (ROADMAP A12b).  The 13 registry names
+# beyond ssd300_ssd_custom and the ResNet-50s.
+FAMILY_NAMES = ("vgga", "vggd", "vgga_dct", "vggd_dct", "vgga_dct_8x8", "vggd_dct_8x8",
+                "ssd300_deconv", "ssd300_up_sampling", "ssd300_cb5_only", "ssd300_y_cb4_cbcr_cb5",
+                "ssd300_vgg", "ssd300_vgg_dct", "ssd300_vgg_dct_image")
+# B4 at the VGG models' 3x3 convs, (B, H = W, C, K, count on one ssd300_vgg_dct
+# step).  First the 13 of `train-detect --vgg` (blocks 1, 4, 5 and the six
+# head convs); then ssd300_vgg's blocks 1-3, whose 300- and 150-column rows
+# are cut into column groups (C3), and the DCT image's conv4_1 (C = 196); then
+# the VGG classifiers' convs at batch 64 (224 columns in block 1).
+VGG_WGRAD_SHAPES = (
+    (32, 38, 64, 256, 1), (32, 38, 256, 512, 1), (32, 38, 512, 512, 2), (32, 19, 640, 512, 1),
+    (32, 19, 512, 512, 2), (32, 38, 512, 100, 1), (32, 19, 1024, 150, 1), (32, 10, 512, 150, 1),
+    (32, 5, 256, 150, 1), (32, 3, 256, 100, 1), (32, 1, 256, 100, 1),
+    (32, 300, 3, 64, 0), (32, 300, 64, 64, 0), (32, 150, 64, 128, 0), (32, 150, 128, 128, 0),
+    (32, 75, 128, 256, 0), (32, 75, 256, 256, 0), (32, 38, 196, 512, 0),
+    (64, 224, 3, 64, 0), (64, 224, 64, 64, 0), (64, 112, 64, 128, 0), (64, 112, 128, 128, 0),
+    (64, 56, 128, 256, 0), (64, 56, 256, 256, 0), (64, 28, 256, 512, 0), (64, 28, 512, 512, 0),
+    (64, 14, 512, 512, 0), (64, 28, 64, 256, 0), (64, 14, 640, 512, 0), (64, 28, 196, 512, 0),
+)
+# B4 launches per train step with --pallas-wgrad.
+VGG_DCT_B4, IDENTICAL_B4 = 13, 20
+
+
+def family_inputs(name, rng, batch):
+    """Seeded inputs in `name`'s contract at `batch`, as NumPy arrays: the
+    registry's example maker (batch 2, the JAX package's distributions)
+    drawn from `rng` until the batch is full."""
+    from jpeg_detection_resnet_ssd_torch.models.zoo import MODEL_REGISTRY
+
+    with torch.device("meta"):
+        _, example = MODEL_REGISTRY[name]()
+    parts = [example(rng) for _ in range(-(-batch // 2))]
+    if isinstance(parts[0], tuple):
+        return tuple(np.concatenate(planes)[:batch] for planes in zip(*parts))
+    return np.concatenate(parts)[:batch]
+
+
+def to_dev(inputs, dev):
+    if isinstance(inputs, tuple):
+        return tuple(torch.from_numpy(a).to(dev) for a in inputs)
+    return torch.from_numpy(inputs).to(dev)
+
+
+def run_other_families(dev, card):
+    """Phase 9g: the VGG classifiers and the other SSD300 families (ROADMAP
+    A12b) on the card, and B4 on maps wider than a stage (C3)."""
+    import copy
+
+    from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
+    from jpeg_detection_resnet_ssd_torch.boxes.decode import decode_detections
+    from jpeg_detection_resnet_ssd_torch.models import build_model, make_inference_fn, ssd_family
+    from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
+    from jpeg_detection_resnet_ssd_torch.ops import batched_nms, conv_grad, dct_flip
+    from jpeg_detection_resnet_ssd_torch.ops import bipartite_match as bm
+    from jpeg_detection_resnet_ssd_torch.train import CheckpointManager, ExperimentConfig, build_trainer
+
+    print("[9g] the other model families: 6 VGG classifiers, 4 ResNet 'identical' and 3 VGG SSD300s")
+    # 1. B4 at the VGG shapes, bf16 and float32, against the plain version;
+    # two bf16 calls bit-identical.  Inputs drawn on the card.
+    gen = torch.Generator(device=dev).manual_seed(101)
+    worst = 0.0
+    for b, h, c, k, _ in VGG_WGRAD_SHAPES:
+        x32 = torch.randn(b, h, h, c, device=dev, generator=gen)
+        dy32 = torch.randn(b, h, h, k, device=dev, generator=gen)
+        plan = conv_grad.tiling_plan(b, h, h, c, k)
+        for dtype in (torch.bfloat16, torch.float32):
+            x, dy = x32.to(dtype), dy32.to(dtype)
+            got = conv_grad.conv3x3_filter_grad(x, dy)
+            ref = conv_grad.conv3x3_filter_grad_reference(x, dy)
+            err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+            worst = max(worst, err)
+            again = conv_grad.conv3x3_filter_grad(x, dy)
+            check(err <= WGRAD_TOL * scale and torch.equal(again.view(torch.int32), got.view(torch.int32)),
+                  f"dW {str(dtype)[6:]:8s} B={b} {h}x{h} {c}->{k} ({plan.w_groups} column group"
+                  f"{'s' if plan.w_groups > 1 else ''}): max |diff| {err:.3g} <= {WGRAD_TOL:g} * "
+                  f"{scale:.4g}; a second call gives the same bits")
+        del x32, dy32, x, dy
+    print("    filter gradient per conv, bf16, queued behind a device sleep, inputs warm in the L2")
+    step = {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0, "bound_ms": 0.0}
+    step_by = {"operations": 0, "bytes": 0}
+    wide = []
+    for b, h, c, k, count in VGG_WGRAD_SHAPES:
+        x = torch.randn(b, h, h, c, device=dev, generator=gen).to(torch.bfloat16)
+        dy = torch.randn(b, h, h, k, device=dev, generator=gen).to(torch.bfloat16)
+        w = torch.zeros(k, c, 3, 3, device=dev, dtype=torch.bfloat16)
+        xn, dyn = x.permute(0, 3, 1, 2), dy.permute(0, 3, 1, 2)
+        plan = conv_grad.tiling_plan(b, h, h, c, k)
+        bound, by = wgrad_bound(b * h * h, c, k, torch.bfloat16)
+        iters = int(np.clip(20.0 / max(4 * bound, 1e-3), 3, 50))  # windows of ~20 ms
+        kern, kern_s = queued_ms(lambda _: conv_grad.conv3x3_filter_grad(x, dy), x, iters=iters, cold=False)
+        lib, lib_s = queued_ms(lambda _: torch.ops.aten.convolution_backward(
+            dyn, xn, w, None, [1, 1], [1, 1], [1, 1], False, [0, 0], 1, [False, True, False]), x,
+            iters=iters, cold=False)
+        plain, _ = timed(lambda: conv_grad.conv3x3_filter_grad_reference(x, dy), 2, warmup_s=0.05)
+        for key, v in (("ms", kern), ("plain_ms", plain), ("library_ms", lib), ("bound_ms", bound)):
+            step[key] += count * v
+        step_by[by] += count
+        if plan.w_groups > 1 or c < 8:
+            wide.append({"shape": [b, h, h, c, k], "w_groups": plan.w_groups, "ms": kern,
+                         "library_ms": lib, "plain_ms": plain, "bound_ms": bound, "bound_by": by})
+        tflops = 2 * 9 * b * h * h * c * k / (kern * 1e-3) / 1e12
+        print(f"    dW bf16 B={b} {h:3d}x{h:<3d} {c:4d}->{k:<4d} x{count}: kernel {kern:.5f} ms {kern_s} = "
+              f"{tflops:.1f} TFLOP/s, {100 * bound / kern:.1f}% of the bound {bound:.5f} ({by}); cuDNN "
+              f"{lib:.5f} {lib_s}; kernel/cuDNN {kern / lib:.2f}; plain {plain:.4f}; box "
+              f"{plan.w_box}x{plan.rows}x{plan.images} x{plan.w_groups} column groups, tile "
+              f"{conv_grad.BLOCK_C}x{plan.n_tile}, {plan.splits} splits, c_pad {plan.c_pad}  [{card}]")
+    print(f"    dW per ssd300_vgg_dct step ({VGG_DCT_B4} convs): kernel {step['ms']:.4f} ms, "
+          f"{100 * step['bound_ms'] / step['ms']:.1f}% of the bound {step['bound_ms']:.4f} ms; cuDNN "
+          f"{step['library_ms']:.4f} ms; plain {step['plain_ms']:.4f} ms  [{card}]")
+
+    # 2. Forward of every new name at batch 2 in float32 (TF32 off),
+    # BatchNorm calibrated on the batch, card against the port's CPU path.
+    rng = np.random.default_rng(102)
+    for name in FAMILY_NAMES:
+        t0 = time.perf_counter()
+        cpu_model, _ = build_model(name, device="cpu")
+        built_s = time.perf_counter() - t0
+        gpu_model = copy.deepcopy(cpu_model).to(dev)
+        inputs = family_inputs(name, rng, 2)
+        on_dev = to_dev(inputs, dev)
+        calibrate_batch_norm(gpu_model, on_dev)
+        cpu_model.load_state_dict(gpu_model.state_dict())
+        with torch.no_grad():
+            got = gpu_model(on_dev).cpu()
+            ref = cpu_model(inputs)
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        rows = f", {got.shape[1]} boxes" if name.startswith("ssd300") else ""
+        check(bool(torch.isfinite(got).all()) and err <= 1e-3 * scale,
+              f"{name}: card forward = CPU forward, max |diff| {err:.3g} <= 1e-3 * {scale:.4g}{rows} "
+              f"(built in {built_s:.1f} s)")
+        del cpu_model, gpu_model
+
+    # 3. Forward + shared decode at batch 32 bf16; kernel and plain NMS
+    # identical; the NMS launches read around the run.
+    decode = make_inference_fn(n_classes=20, spec=AnchorSpec(), candidate_selector="shared")
+    kw = dict(n_classes=20, img_height=300, img_width=300, candidate_selector="shared")
+    nms_launches = 0
+    for name in ("ssd300_vgg_dct", "ssd300_vgg", "ssd300_y_cb4_cbcr_cb5"):
+        model, _ = build_model(name, dtype=torch.bfloat16)
+        inputs = to_dev(family_inputs(name, rng, 32), dev)
+        calibrate_batch_norm(model, inputs)
+        scale_ssd_head(model, inputs)
+        batched_nms.LAUNCHES = 0
+        with torch.no_grad():
+            raw = model(inputs)
+            det = decode(raw)
+        torch.cuda.synchronize()
+        nms_launches += batched_nms.LAUNCHES
+        n_rows = {"vgg_dct": 8732, "vgg": 8732, "resnet_identical": 6716}[ssd_family(name)]
+        ref = decode_detections(raw, nms_impl="reference", **kw)
+        kept = det[det[..., 1] > 0]
+        n_boxes = int((torch.isfinite(kept).all(-1) & (kept[:, 4] > kept[:, 2])
+                       & (kept[:, 5] > kept[:, 3])).sum())
+        check(raw.shape == (32, n_rows, 33) and bool(torch.isfinite(raw).all())
+              and torch.equal(det, ref) and batched_nms.LAUNCHES == 1
+              and n_boxes == len(kept) >= 32 * 10,
+              f"{name} batch 32 bf16: {n_rows} boxes, {len(kept)} detections, all finite with "
+              f"positive area (at least 10 an image); kernel and plain NMS detections identical; "
+              "1 NMS launch")
+        with torch.no_grad():
+            e2e, e2e_s = timed(lambda: decode(model(inputs)), 5)
+        print(f"    {name}: forward + shared decode, batch 32 bf16: {e2e:.4f} ms {e2e_s} = "
+              f"{32e3 / e2e:.1f} images/s  [{card}]")
+        del model
+
+    # 4. One float32 step at batch 2, card (kernels, TF32 off) vs the CPU:
+    # ssd300_vgg_dct and vgga (dropout masks from one host generator).
+    sizes = ssd_predictor_sizes("vgg_dct")
+    det_batch = train_batch(rng, *gt_batch(rng, [3, 6]), dev)
+    cls_batch = {"inputs": torch.from_numpy(family_inputs("vgga", rng, 2)).to(dev),
+                 "labels": np.asarray([3, 998], np.int32)}
+    for name, cfg, batch, head in (
+            ("ssd300_vgg_dct", ExperimentConfig(model="ssd300_vgg_dct", compute_dtype="float32",
+                                                pallas_wgrad=True, batch_size=2), det_batch, "_mbox_"),
+            ("vgga", ExperimentConfig(model="vgga", task="classification", compute_dtype="float32",
+                                      pallas_wgrad=True, batch_size=2, l2_regularization=0.0,
+                                      model_kwargs={"num_classes": 1000}), cls_batch, "predictions")):
+        enc = (TargetEncoder(AnchorSpec(), sizes), TargetEncoder(AnchorSpec(), sizes, device="cpu"))
+        detect = cfg.task == "detection"
+        gpu, gpu_model, _ = build_trainer(cfg, target_encoder=enc[0] if detect else None)
+        cpu, cpu_model, _ = build_trainer(cfg, target_encoder=enc[1] if detect else None, device="cpu")
+        cpu_model.load_state_dict(gpu_model.state_dict())
+        batch_cpu = {k: (tuple(t.cpu() for t in v) if isinstance(v, tuple)
+                         else v.cpu() if torch.is_tensor(v) else v) for k, v in batch.items()}
+        conv_grad.LAUNCHES = 0
+        m_gpu = gpu.train_step(batch, dropout_generator=torch.Generator().manual_seed(103))
+        torch.cuda.synchronize()
+        n_wgrad = conv_grad.LAUNCHES
+        m_cpu = cpu.train_step(batch_cpu, dropout_generator=torch.Generator().manual_seed(103))
+        a, b_ = float(m_gpu["loss"]), float(m_cpu["loss"])
+        want = VGG_DCT_B4 if detect else 8
+        check(abs(a - b_) <= 1e-4 * abs(b_) and n_wgrad == want,
+              f"{name} float32 step: loss card {a:.6f} vs CPU {b_:.6f} (rtol 1e-4); {n_wgrad} filter "
+              f"gradients on B4")
+        worst_head = 0.0
+        for k, p in gpu_model.named_parameters():
+            if head in k and k.endswith("weight"):
+                g = gpu.optimizer.state[p]["momentum_buffer"].cpu()
+                r = cpu.optimizer.state[cpu_model.get_parameter(k)]["momentum_buffer"]
+                worst_head = max(worst_head, float((g - r).abs().max() / r.abs().max()))
+        check(worst_head <= 1e-3, f"{name}: {head.strip('_')} gradients within {worst_head:.3g} <= 1e-3 "
+                                  "of max |ref|")
+        del gpu, cpu, gpu_model, cpu_model
+
+    # 5. train-detect --vgg and one identical archi from a NumPy-written
+    # packed corpus, batch 32 bf16, all three training kernels.
+    with tempfile.TemporaryDirectory() as tmp:
+        voc, stem = write_detect_inputs(tmp)
+        common = ["train-detect", "--voc-root", voc, "--device-augment", "--pack-cache", stem,
+                  "--pallas-wgrad", "--batch-size", 32, "--steps-per-epoch", 3, "--epochs", 2]
+        runs = []
+        for label, extra, b4 in (
+                ("--vgg", ["--vgg", "--output-dir", os.path.join(tmp, "vgg"), "--max-steps", 3],
+                 VGG_DCT_B4),
+                ("--vgg --restart", ["--vgg", "--output-dir", os.path.join(tmp, "vgg"), "--max-steps", 6,
+                                     "--restart"], VGG_DCT_B4),
+                ("--archi y_cb4_cbcr_cb5", ["--archi", "y_cb4_cbcr_cb5", "--output-dir",
+                                            os.path.join(tmp, "ident"), "--max-steps", 3], IDENTICAL_B4)):
+            bm.LAUNCHES = conv_grad.LAUNCHES = dct_flip.LAUNCHES = 0
+            t0 = time.perf_counter()
+            run_dir, row = run_cli(common + extra)
+            torch.cuda.synchronize()
+            launches = {"match": bm.LAUNCHES, "flip": dct_flip.LAUNCHES, "wgrad": conv_grad.LAUNCHES}
+            runs.append((run_dir, row, launches))
+            print(f"    train-detect {label}: {time.perf_counter() - t0:.2f} s in cli.main; row "
+                  f"{json.dumps(row)}; kernel launches: matching {launches['match']}, flip "
+                  f"{launches['flip']}, filter gradient {launches['wgrad']}")
+            check(np.isfinite(row["total_loss"]) and row["step"] == (6 if "restart" in label else 3),
+                  f"train-detect {label}: total_loss finite at step {row['step']}")
+            check(launches == {"match": 3, "flip": 6, "wgrad": 3 * b4},
+                  f"3 steps launched matching 1, flip 2 and filter gradient {b4} times a step")
+        (run_dir, _, vgg_launches), (run_dir2, row2, _), _ = runs
+        check(CheckpointManager(os.path.join(run_dir, "checkpoints")).all_steps() == [3, 6]
+              and run_dir2 == run_dir and row2["epoch"] == 1,
+              "--vgg: checkpoints at steps 3 and 6; --restart reused the run dir for epoch 1")
+        warm_ms = row2["time_s"] * 1e3 / 3
+        print(f"    train-detect --vgg warm steps (the restart's epoch; fit's time_s, 10 ms resolution): "
+              f"{warm_ms:.1f} ms a step, {1e3 / warm_ms:.3f} steps/s, {32e3 / warm_ms:.1f} images/s  "
+              f"[{card}]")
+
+    # 6. The ssd300_vgg_dct bf16 step at batch 32 (bench.py's two GT boxes an
+    # image), B4 against cuDNN's dW in rotating rounds, then a profiler window.
+    batch = train_batch(rng, *bench_gt(32), dev)
+    arms = {}
+    for arm, on in (("B4", True), ("cuDNN dW", False)):
+        cfg = ExperimentConfig(model="ssd300_vgg_dct", compute_dtype="bfloat16", pallas_wgrad=on,
+                               batch_size=32)
+        arms[arm], _, _ = build_trainer(cfg, target_encoder=TargetEncoder(AnchorSpec(), sizes))
+    step_ms = {arm: [] for arm in arms}
+    for rnd in range(4):
+        for arm in (("B4", "cuDNN dW") if rnd % 2 == 0 else ("cuDNN dW", "B4")):
+            step_ms[arm].append(timed(lambda: arms[arm].train_step(batch), 2, warmup_s=0.5))
+    for arm in arms:
+        ms = [m for m, _ in step_ms[arm]]
+        print(f"    ssd300_vgg_dct train step, batch 32 bf16, {arm}: "
+              + ", ".join(f"{m:.3f} ms {spread}" for m, spread in step_ms[arm])
+              + f" -> {32e3 / np.mean(ms):.1f} images/s  [{card}]")
+    diffs = [a - c for (a, _), (c, _) in zip(step_ms["B4"], step_ms["cuDNN dW"])]
+    print("    B4 minus cuDNN dW per round: " + ", ".join(f"{d:+.3f}" for d in diffs) + " ms")
+    profile_steps(lambda: arms["B4"].train_step(batch), card,
+                  float(np.median([m for m, _ in step_ms["B4"]])),
+                  label="ssd300_vgg_dct train steps (B4, matching kernel)")
+    del arms
+    return {"launches": vgg_launches, "nms_launches": nms_launches,
+            "wgrad": {"launches": vgg_launches["wgrad"], "max_abs_err": worst, **step,
+                      "bound_by": max(step_by, key=step_by.get),
+                      "shapes": [list(t[:4]) for t in VGG_WGRAD_SHAPES if t[4]], "wide": wide}}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1913,24 +2230,28 @@ def main() -> int:
     run_evaluate(card, **served)
     run_train_detect(card)
     cls_wgrad, cls_flip = run_classification(dev, card)
+    fam = run_other_families(dev, card)
 
     print(f"[10] done in {time.perf_counter() - t_start:.1f} s")
     source = "jpeg_detection_resnet_ssd_torch/ops/csrc/{}.cu"
     print(json.dumps({"kernels": [
         {"name": "batched_nms_mask", "route": "cuda", "source": source.format("batched_nms"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_nms.py:114",
-         "max_abs_err": nms_err, "library_ms": None, **nms},
+         "max_abs_err": nms_err, "library_ms": None, **nms,
+         "vgg": {"launches": fam["nms_launches"]}},
         {"name": "bipartite_match", "route": "cuda", "source": source.format("bipartite_match"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_match.py:174",
-         "max_abs_err": match_err, "library_ms": None, **train["match"]},
+         "max_abs_err": match_err, "library_ms": None, **train["match"],
+         "vgg": {"launches": fam["launches"]["match"]}},
         {"name": "conv3x3_filter_grad", "route": "cuda", "source": source.format("conv3x3_wgrad"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_conv_grad.py:128",
-         "max_abs_err": max(wgrad_err, train["wgrad_step_err"], cls_wgrad["max_abs_err"]),
-         **train["wgrad"], "classification": cls_wgrad},
+         "max_abs_err": max(wgrad_err, train["wgrad_step_err"], cls_wgrad["max_abs_err"],
+                            fam["wgrad"]["max_abs_err"]),
+         **train["wgrad"], "classification": cls_wgrad, "vgg": fam["wgrad"]},
         {"name": "dct_flip_horizontal", "route": "cuda", "source": source.format("dct_flip"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/dct_augment.py:75",
          "max_abs_err": max(flip_err, cls_flip["max_abs_err"]), "library_ms": None, **flip,
-         "classification": cls_flip},
+         "classification": cls_flip, "vgg": {"launches": fam["launches"]["flip"]}},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -6,7 +6,8 @@
     python -m jpeg_detection_resnet_ssd_torch.cli evaluate-classify --run-dir RUN \\
         --val-dir IMAGENET_VAL
     python -m jpeg_detection_resnet_ssd_torch.cli train-detect --voc-root VOC \\
-        [--device-augment --pack-cache STEM] [--pretrained-weights KERAS.h5]
+        [--vgg | --archi ARCHI] [--device-augment --pack-cache STEM] \\
+        [--pretrained-weights KERAS.h5]
     python -m jpeg_detection_resnet_ssd_torch.cli evaluate --run-dir RUN \\
         --voc-root VOC [--image-set test.txt] [--out-dir PRED]
     python -m jpeg_detection_resnet_ssd_torch.cli compute-map --pred-dir PRED \\
@@ -16,12 +17,14 @@
 
 The flags are those of the JAX package's `cli/main.py`, plus `--device`
 (default `cuda`; every subcommand but `compute-map`, which is NumPy only,
-raises without a card unless given `--device cpu`).  What is not ported
-raises `NotImplementedError` naming its ROADMAP item: `train-detect --vgg`
-and its archis other than `ssd_custom` (A12b), `--n-model-shards > 1`
-(A13), `--pretrained-weights` short names and URLs and `--exported` serving
-artifacts (A14).  The JAX package's `export` and `bench` subcommands are
-not offered yet (A14).
+raises without a card unless given `--device cpu`).  `train-detect` trains
+every SSD300 of the JAX CLI: `ssd_custom` (default), the identical-family
+archis (`--archi deconv|up_sampling|cb5_only|y_cb4_cbcr_cb5`) and the DCT
+VGG SSD300 (`--vgg`); `infer --model` and `evaluate` take every SSD300 of
+the registry.  What is not ported raises `NotImplementedError` naming its
+ROADMAP item: `--n-model-shards > 1` (A13), `--pretrained-weights` short
+names and URLs and `--exported` serving artifacts (A14).  The JAX package's
+`export` and `bench` subcommands are not offered yet (A14).
 """
 
 from __future__ import annotations
@@ -137,6 +140,15 @@ def _check_device_augment_flags(args, config):
         )
 
 
+def _input_format(model, args):
+    """The input contract of the registry model that the flags name."""
+    from jpeg_detection_resnet_ssd_torch.models import MODEL_REGISTRY
+
+    if model not in MODEL_REGISTRY:
+        raise SystemExit(f"unknown --archi {args.archi!r}")
+    return MODEL_REGISTRY[model].input_format
+
+
 def cmd_train_classify(args):
     """Train a ResNet-50 classifier (the DCT stem of `--archi`, or `rgb`) on
     an ImageFolder tree: the host training view, or with `--device-augment`
@@ -149,11 +161,10 @@ def cmd_train_classify(args):
 
     archi = args.archi or "late_concat_rfa_thinner"
     model = "resnet50_rgb" if archi == "rgb" else f"resnet50_dct_{archi}"
-    input_format = "rgb" if archi == "rgb" else "dct_deconv" if archi == "deconv" else "dct"
     config = _load_config(
         args,
         dict(
-            model=model, task="classification", input_format=input_format,
+            model=model, task="classification", input_format=_input_format(model, args),
             model_kwargs={"num_classes": 1000},
             learning_rate=0.1, nesterov=True, lr_decay=1e-4,
             l2_regularization=0.0, batch_size=256, epochs=120,
@@ -200,26 +211,25 @@ def cmd_train_classify(args):
 
 
 def cmd_train_detect(args):
-    """Train the SSD detector on VOC trees: the host Caffe-SSD chain, or
+    """Train an SSD300 detector on VOC trees: the host Caffe-SSD chain, or
     with `--device-augment` the DCT-domain chain inside the train step
-    (from a packed corpus with `--pack-cache`).  Prints the run dir, then
-    the last epoch's history row as JSON."""
+    (from a packed corpus with `--pack-cache`).  The model is
+    `ssd300_{--archi}` (default `ssd_custom`), or `ssd300_vgg_dct` with
+    `--vgg`; `deconv` reads Cb and Cr as two planes (`dct_deconv`), which
+    the device chain does not take.  Prints the run dir, then the last
+    epoch's history row as JSON."""
     from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
     from jpeg_detection_resnet_ssd_torch.data import DetectionDataset, DetectionPipeline
     from jpeg_detection_resnet_ssd_torch.data.augment import SSDDataAugmentation
+    from jpeg_detection_resnet_ssd_torch.models import ssd_family
     from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
     from jpeg_detection_resnet_ssd_torch.train.loop import fit, make_validation_fn
 
-    archi = args.archi or "ssd_custom"
-    if args.vgg or archi != "ssd_custom":
-        raise NotImplementedError(
-            f"train-detect {'--vgg' if args.vgg else '--archi ' + archi}: only ssd_custom is "
-            "ported to PyTorch yet (ROADMAP A12b)"
-        )
+    model = "ssd300_vgg_dct" if args.vgg else f"ssd300_{args.archi or 'ssd_custom'}"
     config = _load_config(
         args,
         dict(
-            model="ssd300_ssd_custom", task="detection", input_format="dct",
+            model=model, task="detection", input_format=_input_format(model, args),
             model_kwargs={"n_classes": 20},
             learning_rate=1e-3,
             l2_regularization=5e-4 if args.reg else 0.0,
@@ -233,8 +243,9 @@ def cmd_train_detect(args):
         [os.path.join(r, "ImageSets", "Main", "trainval.txt") for r in roots],
         [os.path.join(r, "Annotations") for r in roots],
     )
-    family = ssd_predictor_sizes("resnet_custom")
-    encoder = TargetEncoder(AnchorSpec(), family, n_classes=20, device=args.device)
+    # The anchors of the model the run trains (a `--config` may name any SSD300).
+    sizes = ssd_predictor_sizes(ssd_family(config.model))
+    encoder = TargetEncoder(AnchorSpec(), sizes, n_classes=20, device=args.device)
     augment_fn = None
     if args.device_augment:
         # The host ships 352-px (44-block) source maps; photometric, expand
@@ -242,7 +253,7 @@ def cmd_train_detect(args):
         # train step on the card (ops/dct_detect_augment.py v3).
         from jpeg_detection_resnet_ssd_torch.ops import make_dct_detection_augment_v3
 
-        encoder = TargetEncoder(AnchorSpec(img_height=304, img_width=304), family,
+        encoder = TargetEncoder(AnchorSpec(img_height=304, img_width=304), sizes,
                                 n_classes=20, device=args.device)
         augment_fn = make_dct_detection_augment_v3(
             out_y_blocks=38,
@@ -434,8 +445,10 @@ def cmd_compute_map(args):
 
 
 def cmd_infer(args):
-    """Single-image detection: JPEG -> 300x300 DCT planes -> model -> exact
-    decode -> boxes drawn on the original image, saved as a PNG."""
+    """Single-image detection: JPEG -> 300x300 image -> the model's input
+    contract (DCT planes; RGB for `ssd300_vgg`, the DCT image for
+    `ssd300_vgg_dct_image`, Cb and Cr apart for `ssd300_deconv`) -> model ->
+    exact decode -> boxes drawn on the original image, saved as a PNG."""
     _exported_not_ported(args)
     import numpy as np
     import torch
@@ -444,8 +457,8 @@ def cmd_infer(args):
     from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec
     from jpeg_detection_resnet_ssd_torch.data.augment import resize, to_3_channels
     from jpeg_detection_resnet_ssd_torch.data.datasets import VOC_CLASSES
-    from jpeg_detection_resnet_ssd_torch.data.dct_convert import rgb_to_dct_tensors
-    from jpeg_detection_resnet_ssd_torch.models import build_model, make_inference_fn
+    from jpeg_detection_resnet_ssd_torch.data.pipeline import _pack_inputs
+    from jpeg_detection_resnet_ssd_torch.models import MODEL_REGISTRY, build_model, make_inference_fn
 
     module, _ = build_model(args.model, n_classes=20, device=args.device)
     with Image.open(args.image) as im:
@@ -454,8 +467,7 @@ def cmd_infer(args):
         to_3_channels(orig), np.zeros((0, 5), np.float32), 300, 300,
         return_inverter=True,
     )
-    y, cbcr = rgb_to_dct_tensors(img300)
-    inputs = (y[None].astype(np.float32), cbcr[None].astype(np.float32))
+    inputs = _pack_inputs([img300], MODEL_REGISTRY[args.model].input_format)
     if args.weights:
         from jpeg_detection_resnet_ssd_torch.compat import import_weights_by_name
 
@@ -510,7 +522,8 @@ def build_parser():
     td.add_argument("--reg", dest="reg", action="store_true", default=True)
     td.add_argument("--no_reg", dest="reg", action="store_false")
     td.add_argument("--vgg", action="store_true",
-                    help="VGG-DCT backbone (not ported: ROADMAP A12b)")
+                    help="train the DCT VGG SSD300 (ssd300_vgg_dct) instead of "
+                         "ssd300_{--archi}")
     td.add_argument("--device-augment", action="store_true",
                     help="DCT-domain augmentation chain (photometric + expand + "
                          "min-IoU crop + flip) and target encoding inside the "

@@ -63,6 +63,9 @@ def _load_record_rgb(rec: dict) -> np.ndarray:
 
 
 def _pack_inputs(images: list[np.ndarray], input_format: str):
+    """A batch of RGB images in a model's input contract: `rgb` (float32
+    pixels), `dct_image` / `dct_255` (the jpegdecoder layout), `dct` (Y,
+    CbCr planes) or `dct_deconv` (Y, Cb, Cr)."""
     if input_format == "rgb":
         return np.stack(images).astype(np.float32)
     if input_format == "dct_image":

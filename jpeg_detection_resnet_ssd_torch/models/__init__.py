@@ -1,5 +1,5 @@
-"""The `ssd_custom` DCT-SSD300 detector and the ResNet-50 classifiers (the 7
-DCT stems and the RGB baseline) in PyTorch (NHWC contracts)."""
+"""The SSD300 detector families and the ResNet-50 and VGG classifiers in
+PyTorch (NHWC contracts)."""
 
 from jpeg_detection_resnet_ssd_torch.models.layers import L2Normalization
 from jpeg_detection_resnet_ssd_torch.models.resnet import (
@@ -10,11 +10,16 @@ from jpeg_detection_resnet_ssd_torch.models.resnet import (
     ResNetBlocks,
 )
 from jpeg_detection_resnet_ssd_torch.models.ssd import (
+    SSDVGG,
+    SSDVGGDCT,
     SSDResNetCustom,
+    SSDResNetIdentical,
+    SSDVGGDCTImage,
     make_inference_fn,
     ssd_predictor_sizes,
 )
-from jpeg_detection_resnet_ssd_torch.models.zoo import MODEL_REGISTRY, build_model
+from jpeg_detection_resnet_ssd_torch.models.vgg import VGG, VGGDCT, VGGDCT8x8
+from jpeg_detection_resnet_ssd_torch.models.zoo import MODEL_REGISTRY, build_model, ssd_family
 
 __all__ = [
     "CLASSIFICATION_ARCHIS",
@@ -25,7 +30,15 @@ __all__ = [
     "ResNet50RGB",
     "ResNetBlocks",
     "SSDResNetCustom",
+    "SSDResNetIdentical",
+    "SSDVGG",
+    "SSDVGGDCT",
+    "SSDVGGDCTImage",
+    "VGG",
+    "VGGDCT",
+    "VGGDCT8x8",
     "build_model",
     "make_inference_fn",
+    "ssd_family",
     "ssd_predictor_sizes",
 ]

@@ -2,8 +2,9 @@
 
 Counterpart of the JAX package's `models/layers.py`:
   * BatchNormalization: epsilon 1e-3; Keras momentum 0.99 is torch's 0.01.
-  * Conv2D 'same' padding == TF 'SAME' at stride 1 (for an even kernel the
-    extra row/column goes on the high side).
+  * Conv2D and pooling 'same' padding == TF 'SAME': `same_pads` from the
+    input's size, the odd row/column on the high side (max pooling pads
+    with -inf, as `lax.reduce_window` does).
   * he_normal == truncated normal (at +-2 sigma) with stddev sqrt(2/fan_in),
     drawn from an explicit `torch.Generator`.
 
@@ -23,6 +24,12 @@ runs through `ops.conv_grad.conv3x3_same_wgrad`, whose filter gradient is
 the CUDA kernel `ops/csrc/conv3x3_wgrad.cu`.  The forward, the input
 gradient and the parameter names are unchanged.  Unlike the JAX switch (read
 at trace time), this one is read at every forward call.
+
+`Dropout` is flax's `nn.Dropout` as the port runs every random op: a host
+sampler (`dropout_mask`, a bool mask drawn from a CPU `torch.Generator`)
+and a deterministic apply, so the card and the CPU take the same step.  A
+train-mode forward through it reads its generator from `dropout_rng()`, a
+context manager the trainer opens around the forward.
 
 `running_stats_frozen()` makes train-mode BatchNorm normalise with the batch
 statistics without moving its running statistics: the recompute of a
@@ -51,6 +58,7 @@ _TRUNC_STD = 0.87962566103423978
 
 _WGRAD_KERNEL_ENABLED = False
 _STATS_FROZEN = False
+_DROPOUT_GENERATOR: torch.Generator | None = None
 
 
 def pallas_wgrad_enabled() -> bool:
@@ -79,6 +87,18 @@ def running_stats_frozen():
         yield
     finally:
         _STATS_FROZEN = prev
+
+
+@contextlib.contextmanager
+def dropout_rng(generator: torch.Generator | None):
+    """Inside the block, train-mode `Dropout` draws its masks from
+    `generator` (a CPU generator), in the order the forward reaches them."""
+    global _DROPOUT_GENERATOR
+    prev, _DROPOUT_GENERATOR = _DROPOUT_GENERATOR, generator
+    try:
+        yield
+    finally:
+        _DROPOUT_GENERATOR = prev
 
 
 def conv3x3_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
@@ -112,10 +132,19 @@ def nchw_to_nhwc(x: torch.Tensor) -> torch.Tensor:
     return x.permute(0, 2, 3, 1)
 
 
+def same_pads(size: int, kernel: int, stride: int = 1, dilation: int = 1) -> tuple[int, int]:
+    """TF SAME padding (low, high) of one spatial axis of `size`: the output
+    has ceil(size / stride) positions, the odd one of the padding goes on
+    the high side (300 -> 38 under an 8x8 stride-8 kernel pads (2, 2))."""
+    total = max((-(-size // stride) - 1) * stride + (kernel - 1) * dilation + 1 - size, 0)
+    return total // 2, total - total // 2
+
+
 class Conv(nn.Module):
     """Keras-flavoured Conv2D on NHWC: he_normal kernel, zero bias.
 
-    The kernel is stored OIHW, torch's layout (the JAX package stores HWIO;
+    SAME padding is `same_pads` of the input's size, at any stride.  The
+    kernel is stored OIHW, torch's layout (the JAX package stores HWIO;
     `compat.flax_bridge` transposes)."""
 
     def __init__(
@@ -131,14 +160,13 @@ class Conv(nn.Module):
     ):
         super().__init__()
         if padding == "SAME":
-            if strides != 1:
-                raise NotImplementedError("SAME padding is ported for stride 1 only")
-            total = dilation * (kernel - 1)
-            self.pad = (total // 2, total - total // 2)  # (low, high)
+            # (low, high); at stride > 1 it depends on the input's size (None)
+            self.pad = same_pads(1, kernel, 1, dilation) if strides == 1 else None
         elif padding == "VALID":
             self.pad = (0, 0)
         else:
             raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
+        self.kernel = kernel
         self.stride = strides
         self.dilation = dilation
         self.wgrad_eligible = (kernel, strides, padding, dilation) == (3, 1, "SAME", 1)
@@ -154,13 +182,18 @@ class Conv(nn.Module):
         bias = None if self.bias is None else self.bias.to(x.dtype)
         if self.wgrad_eligible:
             return conv3x3_same(x, self.weight.to(x.dtype), bias)
-        lo, hi = self.pad
-        if lo != hi:  # TF SAME puts the odd row/column on the high side
-            x = F.pad(x, (0, 0, lo, hi, lo, hi))
-            lo = 0
+        if self.pad is None:
+            args = (self.kernel, self.stride, self.dilation)
+            (top, bottom), (left, right) = same_pads(x.shape[1], *args), same_pads(x.shape[2], *args)
+        else:
+            (top, bottom), (left, right) = self.pad, self.pad
+        pad = (top, left)
+        if top != bottom or left != right:  # the odd row/column on the high side
+            x = F.pad(x, (0, 0, left, right, top, bottom))
+            pad = 0
         y = F.conv2d(
             nhwc_to_nchw(x), self.weight.to(x.dtype), bias,
-            self.stride, lo, self.dilation,
+            self.stride, pad, self.dilation,
         )
         return nchw_to_nhwc(y)
 
@@ -206,6 +239,32 @@ class Dense(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+
+
+def dropout_mask(shape, keep_prob: float, generator: torch.Generator) -> torch.Tensor:
+    """The host half of `Dropout`: a CPU bool mask, True with probability
+    `keep_prob` (uniform draws below it)."""
+    return torch.rand(shape, generator=generator) < keep_prob
+
+
+class Dropout(nn.Module):
+    """flax's `nn.Dropout(rate)`: identity in eval mode; in train mode
+    `where(mask, x / keep_prob, 0)` with a mask from `dropout_mask` on the
+    generator of `dropout_rng()`, which must be open."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if _DROPOUT_GENERATOR is None:
+            raise RuntimeError("a train-mode Dropout needs a generator: run the forward "
+                               "inside models.layers.dropout_rng(generator)")
+        keep_prob = 1.0 - self.rate
+        mask = dropout_mask(tuple(x.shape), keep_prob, _DROPOUT_GENERATOR).to(x.device)
+        return torch.where(mask, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class BatchNorm(nn.BatchNorm2d):
@@ -256,16 +315,27 @@ class L2Normalization(nn.Module):
 
 
 def max_pool(x: torch.Tensor, window: int = 2, strides: int = 2, padding: str = "VALID") -> torch.Tensor:
-    """Max pooling on NHWC.  SAME at stride 1 pads with -inf (odd windows)."""
+    """Max pooling on NHWC.  SAME pads `same_pads` of the input's size with
+    -inf, as `lax.reduce_window` does (75 -> 38 at window 2, stride 2 pads
+    (0, 1))."""
+    pad = 0
     if padding == "SAME":
-        if strides != 1 or window % 2 == 0:
-            raise NotImplementedError("SAME max_pool is ported for stride 1, odd window")
-        pad = window // 2
-    elif padding == "VALID":
-        pad = 0
-    else:
+        (top, bottom), (left, right) = same_pads(x.shape[1], window, strides), same_pads(
+            x.shape[2], window, strides)
+        if top == bottom and left == right and 2 * top <= window:
+            pad = (top, left)  # max_pool2d pads with -inf itself
+        else:
+            x = F.pad(x, (0, 0, left, right, top, bottom), value=float("-inf"))
+    elif padding != "VALID":
         raise ValueError(f"padding must be 'SAME' or 'VALID', got {padding!r}")
     return nchw_to_nhwc(F.max_pool2d(nhwc_to_nchw(x), window, strides, pad))
+
+
+def relu_convs(owner: nn.Module, names, x: torch.Tensor) -> torch.Tensor:
+    """relu(conv(x)) through `owner`'s layers `names`, in order."""
+    for name in names:
+        x = F.relu(owner.get_submodule(name)(x))
+    return x
 
 
 def zero_pad2d(x: torch.Tensor, pad: int | tuple = 1) -> torch.Tensor:

@@ -290,7 +290,7 @@ class DCTStem(ResNetBlocks):
         return self._run_segments(x, self._post, taps), taps
 
 
-def _as_inputs(inputs, device, dtype):
+def as_inputs(inputs, device, dtype):
     """A model's input (a tuple of planes, or one image tensor) as tensors on
     `device` in the compute dtype."""
     if isinstance(inputs, (tuple, list)):
@@ -315,7 +315,7 @@ class ResNet50DCT(ResNetBlocks):
         self.fc1000 = Dense(c, num_classes, generator=generator)
 
     def forward(self, inputs) -> torch.Tensor:
-        x, _ = self.stem(_as_inputs(inputs, self.fc1000.weight.device, self.dtype))
+        x, _ = self.stem(as_inputs(inputs, self.fc1000.weight.device, self.dtype))
         x = self._run_blocks(x, BLOCK5)
         return self.fc1000(x.mean(dim=(1, 2)))  # GlobalAveragePooling2D 'avg_pool'
 
@@ -348,7 +348,7 @@ class ResNet50RGB(ResNetBlocks):
             self.fc1000 = Dense(c, num_classes, generator=generator)
 
     def forward(self, x) -> torch.Tensor:
-        x = _as_inputs(x, self.conv1.weight.device, self.dtype)
+        x = as_inputs(x, self.conv1.weight.device, self.dtype)
         x = F.relu(self.bn_conv1(self.conv1(zero_pad2d(x, 3))))
         x = max_pool(zero_pad2d(x, 1), 3, 2, "VALID")
         x = self._run_blocks(x, _RGB_BLOCKS)

@@ -1,9 +1,17 @@
-"""The flagship `ssd_custom` DCT-SSD300 detector and its inference decode.
+"""The SSD300 detector families and their inference decode.
 
-Counterpart of the JAX package's `models/ssd.py` for `SSDResNetCustom`, the
-shared head (`_SSDHead`), the pool5/fc6/fc7 neck (`_SSDNeckMixin`,
-`_FC6CenterTap`) and `make_inference_fn`.  The other SSD families are not
-ported yet (see ROADMAP.md).
+Counterpart of the JAX package's `models/ssd.py`: the shared head
+(`_SSDHead`), the pool5/fc6/fc7 neck and the extra blocks
+(`_SSDNeckMixin`, `_FC6CenterTap`), the five families and
+`make_inference_fn`:
+
+  SSDResNetCustom     the flagship `ssd_custom` (late-concat ResNet trunk)
+  SSDResNetIdentical  a DCT ResNet stem (`deconv`, `up_sampling`,
+                      `cb5_only`, `y_cb4_cbcr_cb5`) + the original SSD300
+                      extras; its first source is L2Norm of the raw Y input
+  SSDVGG              the original VGG16 SSD300 on RGB images
+  SSDVGGDCT           the dual DCT-input VGG SSD300 (`ssd300_vgg_dct`)
+  SSDVGGDCTImage      one "DCT image" through a stride-8 8x8 stem
 
 The model returns the raw prediction tensor `(B, n_boxes_total,
 n_classes + 1 + 12)` = [softmax conf, loc offsets, anchor coords, variances],
@@ -31,18 +39,26 @@ from jpeg_detection_resnet_ssd_torch.models.layers import (
     max_pool,
     nchw_to_nhwc,
     nhwc_to_nchw,
+    relu_convs,
     zero_pad2d,
 )
 from jpeg_detection_resnet_ssd_torch.models.resnet import (
     BLOCK5,
+    DCTStem,
     ResNetBlocks,
+    as_inputs,
     late_concat_specs,
 )
+from jpeg_detection_resnet_ssd_torch.models.vgg import add_convs
 from jpeg_detection_resnet_ssd_torch.utils.device import resolve_device
 
 # Predictor layer base names, kept from the original VGG-SSD for weight
 # compatibility even where the source feature maps were remapped.
 _HEAD_NAMES = ("conv4_3_norm", "fc7", "conv6_2", "conv7_2", "conv8_2", "conv9_2")
+# `ssd300_vgg`'s in-graph preprocessing: the ImageNet mean of its RGB input,
+# then the channel order of its Caffe weights.
+_RGB_MEAN = (123.0, 117.0, 104.0)
+_TO_BGR = [2, 1, 0]
 
 
 def ssd_predictor_sizes(family: str) -> tuple[tuple[int, int], ...]:
@@ -61,7 +77,9 @@ class _SSDHead(nn.Module):
     groups under the reference head names but executed as one conv over the
     concatenated output channels (the same contraction per output channel).
     The conv output is NHWC before the reshape to boxes, so box order lines
-    up with the anchors' (fh, fw, n_boxes) row order.
+    up with the anchors' (fh, fw, n_boxes) row order.  The conf layers are
+    `{name}_mbox_conf_{n_classes + 1}`, or `{name}_mbox_conf` without
+    `class_suffixed_conf_names` (the original VGG SSD300's names).
     """
 
     def __init__(
@@ -70,6 +88,7 @@ class _SSDHead(nn.Module):
         spec: AnchorSpec,
         in_features: Sequence[int],
         generator: torch.Generator | None = None,
+        class_suffixed_conf_names: bool = True,
     ):
         super().__init__()
         if len(in_features) != spec.n_layers:
@@ -79,7 +98,7 @@ class _SSDHead(nn.Module):
         self._names = []
         n_total = n_classes + 1
         for name, cin, n_boxes in zip(_HEAD_NAMES, in_features, spec.boxes_per_cell()):
-            conf_name = f"{name}_mbox_conf_{n_total}"
+            conf_name = f"{name}_mbox_conf_{n_total}" if class_suffixed_conf_names else f"{name}_mbox_conf"
             loc_name = f"{name}_mbox_loc"
             self.add_module(conf_name, Conv(cin, n_boxes * n_total, 3, generator=generator))
             self.add_module(loc_name, Conv(cin, n_boxes * 4, 3, generator=generator))
@@ -150,8 +169,14 @@ class _FC6CenterTap(nn.Module):
 class _SSDNeckMixin(ResNetBlocks):
     """pool5 -> dilated fc6 -> fc7, and the conv{idx}_1/_2 extra blocks."""
 
-    def _add_fc_neck(self, in_features: int, generator) -> int:
-        self.fc6 = _FC6CenterTap(in_features, 1024, dilation=6, generator=generator)
+    def _add_fc_neck(self, in_features: int, neck_size: int, generator) -> int:
+        """fc6 and fc7 for a `neck_size` x `neck_size` map (static per
+        family): on a map no larger than the dilation (ssd_custom's 5x5)
+        fc6 is its center tap, else the full dilation-6 SAME conv."""
+        if neck_size <= 6:
+            self.fc6 = _FC6CenterTap(in_features, 1024, dilation=6, generator=generator)
+        else:
+            self.fc6 = Conv(in_features, 1024, 3, 1, "SAME", dilation=6, generator=generator)
         self.fc7 = Conv(1024, 1024, 1, 1, "SAME", generator=generator)
         return 1024
 
@@ -171,6 +196,38 @@ class _SSDNeckMixin(ResNetBlocks):
         if pad:
             x = zero_pad2d(x, 1)
         return F.relu(self._modules[f"conv{idx}_2"](x))
+
+
+class _SSD300Tail(_SSDNeckMixin):
+    """A trunk followed by the original SSD300's tail: the neck, extra
+    blocks 6-9 (conv6 at stride 2, conv7 at `conv7_strides`; conv6 and
+    conv7 zero-padded first) and the head over [L2Norm(tap), fc7, conv6_2,
+    conv7_2, conv8_2, conv9_2].  Subclasses register their trunk, then
+    `_add_tail`; their forward ends in `_tail(tap, x)`."""
+
+    def __init__(self, n_classes: int, spec: AnchorSpec, dtype: torch.dtype, remat: bool):
+        super().__init__()
+        self.n_classes = n_classes
+        self.spec = spec
+        self.dtype = dtype
+        self.remat = remat
+
+    def _add_tail(self, in_features: int, tap_features: int, neck_size: int, conv7_strides: int,
+                  generator, class_suffixed_conf_names: bool = True) -> None:
+        c = self._add_fc_neck(in_features, neck_size, generator)
+        widths = [c, self._add_extra_block(c, 256, 512, 6, 2, generator)]
+        widths.append(self._add_extra_block(widths[-1], 128, 256, 7, conv7_strides, generator))
+        for idx in (8, 9):
+            widths.append(self._add_extra_block(widths[-1], 128, 256, idx, 1, generator))
+        self.conv4_3_norm = L2Normalization(tap_features)
+        self.head = _SSDHead(self.n_classes, self.spec, (tap_features, *widths), generator,
+                             class_suffixed_conf_names)
+
+    def _tail(self, tap: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        maps = [self._fc_neck(x)]
+        for idx, pad in ((6, True), (7, True), (8, False), (9, False)):
+            maps.append(self._extra_block(maps[-1], idx, pad))
+        return self.head([self.conv4_3_norm(tap), *maps])
 
 
 # The late-concat-RFA-thinner trunk of `ssd_custom`, in execution order:
@@ -215,7 +272,7 @@ class SSDResNetCustom(_SSDNeckMixin):
         c = self._add_blocks(c_y + c_cbcr, _STAGE3, g)
         c = self._add_blocks(c, _STAGE4, g)
         c = self._add_blocks(c, BLOCK5, g)
-        c = self._add_fc_neck(c, g)
+        c = self._add_fc_neck(c, 5, g)
         c6 = self._add_extra_block(c, 256, 256, 6, 2, g)
         c9 = self._add_extra_block(c6, 128, 256, 9, 1, g)
         self.conv4_3_norm = L2Normalization(384)
@@ -248,6 +305,154 @@ class SSDResNetCustom(_SSDNeckMixin):
             conv9_2,
         ]
         return self.head(sources)
+
+
+class SSDResNetIdentical(_SSD300Tail):
+    """A DCT ResNet stem + the original SSD300 extra layers.
+
+    `archi` picks the stem (`deconv`, `cb5_only`, `y_cb4_cbcr_cb5`, or
+    `up_sampling`, which builds the `up_sampling_rfa` stem); then stage 5
+    (-> 10x10x2048), the neck with the full dilated fc6, and extras 6-9.
+    Predictor sources: L2Norm of the RAW Y input (38x38x64), fc7 (10x10),
+    conv6_2 (5x5), conv7_2 (5x5), conv8_2 (3x3), conv9_2 (1x1).
+
+    Inputs: (y, cbcr) with y (B,38,38,64) and cbcr (B,19,19,128), or
+    (y, cb, cr) with cb, cr (B,19,19,64) for `deconv`.
+    """
+
+    def __init__(
+        self,
+        archi: str = "deconv",
+        n_classes: int = 20,
+        spec: AnchorSpec = AnchorSpec(),
+        dtype: torch.dtype = torch.float32,
+        remat: bool = False,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__(n_classes, spec, dtype, remat)
+        self.archi = archi
+        stem_archi = "up_sampling_rfa" if archi == "up_sampling" else archi
+        self.stem = DCTStem(stem_archi, remat=remat, generator=generator)
+        c = self._add_blocks(self.stem.out_features, BLOCK5, generator)
+        self._add_tail(c, 64, 10, 1, generator)
+
+    def forward(self, inputs) -> torch.Tensor:
+        inputs = as_inputs(inputs, self.conv4_3_norm.gamma.device, self.dtype)
+        x, _ = self.stem(inputs)
+        return self._tail(inputs[0], self._run_blocks(x, BLOCK5))  # stage 5 -> 10x10x2048
+
+
+# The VGG blocks 4 and 5 of the DCT-input VGG SSDs.
+_CONV4 = ("conv4_1", "conv4_2", "conv4_3")
+_CONV5 = ("conv5_1", "conv5_2", "conv5_3")
+
+
+class SSDVGG(_SSD300Tail):
+    """The original VGG16 SSD300 on RGB images (`ssd300_vgg`).
+
+    In-graph preprocessing: the mean (123, 117, 104) subtracted and the
+    channels swapped to BGR, so raw 0-255 images go in.  VGG16 blocks 1-5
+    with SAME 2x2 pools (300 -> 150 -> 75 -> 38 -> 19; conv4_3 tapped at
+    38x38), the neck on 19x19 and extras 6-9.  The conf layers are named
+    `{source}_mbox_conf`, without the class suffix.
+
+    Input: (B, 300, 300, 3).
+    """
+
+    _DEPTHS = ((64, 2), (128, 2), (256, 3), (512, 3))
+
+    def __init__(
+        self,
+        n_classes: int = 20,
+        spec: AnchorSpec = AnchorSpec(),
+        dtype: torch.dtype = torch.float32,
+        remat: bool = False,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__(n_classes, spec, dtype, remat)  # (remat: no bottlenecks to recompute)
+        c = 3
+        self._blocks = []
+        for bi, (width, n) in enumerate(self._DEPTHS + ((512, 3),), start=1):
+            names = [f"conv{bi}_{j}" for j in range(1, n + 1)]
+            c = add_convs(self, c, names, width, generator)
+            self._blocks.append(names)
+        self._add_tail(c, 512, 19, 2, generator, class_suffixed_conf_names=False)
+
+    def forward(self, x) -> torch.Tensor:
+        x = as_inputs(x, self.conv1_1.weight.device, self.dtype)
+        x = (x - torch.tensor(_RGB_MEAN, dtype=x.dtype, device=x.device))[..., _TO_BGR]
+        for bi, names in enumerate(self._blocks, start=1):
+            x = relu_convs(self, names, x)
+            if bi == 4:
+                conv4_3 = x
+            if bi < 5:
+                x = max_pool(x, 2, 2, "SAME")
+        return self._tail(conv4_3, x)  # the neck on 19x19
+
+
+class SSDVGGDCT(_SSD300Tail):
+    """The dual DCT-input VGG SSD300 (`ssd300_vgg_dct`).
+
+    Y (38,38,64): BatchNorm `b_norm_64` -> conv1_1_dct_256 -> conv4_1..3
+    (tap conv4_3) -> 2x2 pool (VALID, 38 -> 19); concat the BatchNorm'd
+    CbCr (`b_norm_128`, 19,19,128) -> conv5_1..3; the neck on 19x19 and
+    extras 6-9.
+    """
+
+    def __init__(
+        self,
+        n_classes: int = 20,
+        spec: AnchorSpec = AnchorSpec(),
+        dtype: torch.dtype = torch.float32,
+        remat: bool = False,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__(n_classes, spec, dtype, remat)  # (remat: no bottlenecks to recompute)
+        self.b_norm_128 = BatchNorm(128)
+        self.b_norm_64 = BatchNorm(64)
+        self.conv1_1_dct_256 = Conv(64, 256, 3, generator=generator)
+        c = add_convs(self, 256, _CONV4, 512, generator)
+        c = add_convs(self, c + 128, _CONV5, 512, generator)
+        self._add_tail(c, 512, 19, 2, generator)
+
+    def forward(self, inputs) -> torch.Tensor:
+        y, cbcr = as_inputs(inputs, self.b_norm_64.weight.device, self.dtype)
+        norm_cbcr = self.b_norm_128(cbcr)
+        x = F.relu(self.conv1_1_dct_256(self.b_norm_64(y)))
+        conv4_3 = relu_convs(self, _CONV4, x)
+        x = torch.cat([max_pool(conv4_3, 2, 2), norm_cbcr], dim=-1)  # 38 -> 19
+        return self._tail(conv4_3, relu_convs(self, _CONV5, x))
+
+
+class SSDVGGDCTImage(_SSD300Tail):
+    """The single "DCT image" SSD300 (`ssd300_vgg_dct_image`).
+
+    A (300,300,3) plane of coefficients laid out in 8x8 blocks: BatchNorm
+    `b_norm` -> conv1_1_dct (196, 8x8, stride 8, SAME: 300 -> 38) ->
+    conv4_1..3 (tap conv4_3) -> 2x2 SAME pool (38 -> 19) -> conv5_1..3; the
+    neck on 19x19 and extras 6-9.
+    """
+
+    def __init__(
+        self,
+        n_classes: int = 20,
+        spec: AnchorSpec = AnchorSpec(),
+        dtype: torch.dtype = torch.float32,
+        remat: bool = False,
+        generator: torch.Generator | None = None,
+    ):
+        super().__init__(n_classes, spec, dtype, remat)  # (remat: no bottlenecks to recompute)
+        self.b_norm = BatchNorm(3)
+        self.conv1_1_dct = Conv(3, 196, 8, 8, "SAME", generator=generator)
+        c = add_convs(self, 196, _CONV4, 512, generator)
+        c = add_convs(self, c, _CONV5, 512, generator)
+        self._add_tail(c, 512, 19, 2, generator)
+
+    def forward(self, x) -> torch.Tensor:
+        x = as_inputs(x, self.b_norm.weight.device, self.dtype)
+        x = F.relu(self.conv1_1_dct(self.b_norm(x)))  # 300 -> 38
+        conv4_3 = relu_convs(self, _CONV4, x)
+        return self._tail(conv4_3, relu_convs(self, _CONV5, max_pool(conv4_3, 2, 2, "SAME")))
 
 
 def make_inference_fn(

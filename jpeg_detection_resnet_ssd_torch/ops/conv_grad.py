@@ -85,11 +85,13 @@ class WgradPlan:
 
     A stage is one TMA box of x and one of dy: `images` images x `rows` rows
     x `w_box` columns of P (`stage_rows` in all, a multiple of 16), the
-    columns past W and rows past H reading zero.  The `stages` stages along
-    P (image groups outer, row groups inner) are cut into `splits` chunks of
-    `per_split`, added in order afterwards.  A block owns BLOCK_C channels x
-    `n_tile` k of one tap over one chunk, with a ring of `ring` stages.  x
-    and dy are read with `c_pad` and `k_pad` channels (multiples of 8)."""
+    columns past W and rows past H reading zero.  A row wider than a box
+    is cut into `w_groups` column groups of `w_box` columns.  The `stages`
+    stages along P (image groups outer, row groups, column groups inner)
+    are cut into `splits` chunks of `per_split`, added in order afterwards.
+    A block owns BLOCK_C channels x `n_tile` k of one tap over one chunk,
+    with a ring of `ring` stages.  x and dy are read with `c_pad` and
+    `k_pad` channels (multiples of 8)."""
 
     c_pad: int
     k_pad: int
@@ -98,6 +100,7 @@ class WgradPlan:
     images: int
     n_tile: int
     h_groups: int
+    w_groups: int
     stages: int
     per_split: int
     splits: int
@@ -107,9 +110,10 @@ class WgradPlan:
     def stage_rows(self) -> int:
         return self.w_box * self.rows * self.images
 
-    def stage_origin(self, u: int) -> tuple[int, int]:
-        """(b0, y0): the first image and row of stage `u`."""
-        return (u // self.h_groups) * self.images, (u % self.h_groups) * self.rows
+    def stage_origin(self, u: int) -> tuple[int, int, int]:
+        """(b0, y0, x0): the first image, row and column of stage `u`."""
+        v, g = divmod(u, self.w_groups)
+        return (v // self.h_groups) * self.images, (v % self.h_groups) * self.rows, g * self.w_box
 
 
 @functools.lru_cache(maxsize=256)
@@ -117,9 +121,12 @@ def tiling_plan(b: int, h: int, w: int, c: int, k: int, sm_count: int = 132) -> 
     """The bf16 kernel's tiling for one problem.
 
     The box is the one that pads P least (a stage's fixed cost counted as 16
-    rows); the k tile is the narrowest width that holds K (K > 256: tiles of
-    256 or 128, whichever pads less); the split is the one that a simple
-    model of one wave of one block per SM finishes first."""
+    rows), spanning whole rows (W to W + 15 columns) where a stage can hold
+    one; a row wider than MAX_STAGE_ROWS is cut into column groups of a
+    multiple of 16 columns.  The k tile is the narrowest width that holds K
+    (K > 256: tiles of 256 or 128, whichever pads less); the split is the
+    one that a simple model of one wave of one block per SM finishes
+    first."""
     c_pad, k_pad = _cdiv(c, 8) * 8, _cdiv(k, 8) * 8
     if k_pad <= N_TILES[-1]:
         n_tile = min(n for n in N_TILES if n >= k_pad)
@@ -127,20 +134,24 @@ def tiling_plan(b: int, h: int, w: int, c: int, k: int, sm_count: int = 132) -> 
         n_tile = min((256, 128), key=lambda n: _cdiv(k, n) * n)
     stage_boxes = 2 + _cdiv(n_tile, BOX_C)
     best = None
-    for w_box in range(w, w + 16):
-        for rows in range(1, h + 1):
-            for images in range(1, 17):
-                s = w_box * rows * images
-                if s % 16 or s > MAX_STAGE_ROWS or 2 * stage_boxes * s * 128 > SMEM_BYTES:
-                    continue
-                padded = _cdiv(b, images) * images * _cdiv(h, rows) * rows * w_box
-                cost = padded * (1 + 16 / s)
-                if best is None or cost < best[0]:
-                    best = (cost, w_box, rows, images)
+    wide = range(16, MAX_STAGE_ROWS + 1, 16)
+    for boxes in (range(w, w + 16), wide):  # the second only when no row fits a stage
+        for w_box in boxes:
+            for rows in range(1, h + 1):
+                for images in range(1, 17):
+                    s = w_box * rows * images
+                    if s % 16 or s > MAX_STAGE_ROWS or 2 * stage_boxes * s * 128 > SMEM_BYTES:
+                        continue
+                    padded = _cdiv(b, images) * images * _cdiv(h, rows) * rows * _cdiv(w, w_box) * w_box
+                    cost = padded * (1 + 16 / s)
+                    if best is None or cost < best[0]:
+                        best = (cost, w_box, rows, images)
+        if best is not None:
+            break
     _, w_box, rows, images = best
     s = w_box * rows * images
-    h_groups = _cdiv(h, rows)
-    stages = _cdiv(b, images) * h_groups
+    h_groups, w_groups = _cdiv(h, rows), _cdiv(w, w_box)
+    stages = _cdiv(b, images) * h_groups * w_groups
     tiles = 9 * _cdiv(c, BLOCK_C) * _cdiv(k, n_tile)
     stage_s = s * BLOCK_C * n_tile * 2 / _SM_FLOPS
     workspace_s = 9 * c * k * 4 * 2 / _HBM_BYTES_PER_S
@@ -155,7 +166,8 @@ def tiling_plan(b: int, h: int, w: int, c: int, k: int, sm_count: int = 132) -> 
             best = (t, per, splits)
     _, per, splits = best
     ring = min(MAX_RING, SMEM_BYTES // (stage_boxes * s * 128))
-    return WgradPlan(c_pad, k_pad, w_box, rows, images, n_tile, h_groups, stages, per, splits, ring)
+    return WgradPlan(c_pad, k_pad, w_box, rows, images, n_tile, h_groups, w_groups, stages, per,
+                     splits, ring)
 
 
 def _check(x: torch.Tensor, dy: torch.Tensor) -> None:

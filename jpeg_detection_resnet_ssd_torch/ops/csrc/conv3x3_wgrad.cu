@@ -30,10 +30,14 @@
 //     (64 channels, w_box columns, rows, images) at (c0, kw-1, y0+kh-1, b0);
 //     TMA fills every element outside the tensor, negative coordinates
 //     included, with zero.  A map over dy loads the same box at (k0, 0, y0,
-//     b0), its columns W..w_box-1 and rows past H zero too.  Both land in
-//     shared memory as 128-byte rows in the same (image, y, x) order, so row
-//     r of the x tile meets row r of the dy tile: a stage is S = w_box *
-//     rows * images rows of P (a multiple of 16, wgmma's bf16 depth).  The
+//     b0), its columns W..w_box-1 and rows past H zero too.  A row wider
+//     than a stage holds (W > 128: the VGG models' 150- to 300-column maps)
+//     is cut into column groups: the boxes of group g start at column x0 =
+//     g * w_box (x at x0 + kw - 1, dy at x0), the columns past W zero.
+//     Both land in shared memory as 128-byte rows in the same (image, y, x)
+//     order, so row r of the x tile meets row r of the dy tile: a stage is
+//     S = w_box * rows * images rows of P (a multiple of 16, wgmma's bf16
+//     depth).  The
 //     wrapper's plan (ops/conv_grad.py, `tiling_plan`) picks the box that
 //     wastes the fewest rows: 38x38 maps take 2 images x 1 row x 40
 //     columns, 10x10 maps 8 images of one row, so small maps are not
@@ -186,9 +190,10 @@ constexpr int kSmemLimit = 227 * 1024;
 // The tiling the wrapper's plan chose (ops/conv_grad.py, `tiling_plan`).
 struct Bf16Tile {
   int C, K;          // true channel counts: the extent of dW
-  int rows, images;  // the TMA box's rows and images (its columns: w_box)
+  int w_box, rows, images;  // the TMA box's columns, rows and images
   int h_groups;      // ceil(H / rows)
-  int stages;        // stages along P: ceil(B / images) * h_groups
+  int w_groups;      // ceil(W / w_box): column groups of a row wider than the box
+  int stages;        // stages along P: ceil(B / images) * h_groups * w_groups
   int per_split;     // stages per chunk of P
   int ring;          // stages in the shared-memory ring
   int stage_rows;    // S = w_box * rows * images, a multiple of 16
@@ -449,17 +454,19 @@ wgrad_bf16_kernel(const __grid_constant__ CUtensorMap tm_x, const __grid_constan
       for (int i = 0; i < n; ++i) {
         const int s = i % t.ring;
         mbar_wait(smem_u32(&empty_bar[s]), ((i / t.ring) & 1) ^ 1);
-        const int u = s_begin + i;
-        const int b0 = (u / t.h_groups) * t.images;
-        const int y0 = (u % t.h_groups) * t.rows;
+        const int u = s_begin + i;  // (image group, row group, column group), the last innermost
+        const int v = u / t.w_groups;
+        const int x0 = (u % t.w_groups) * t.w_box;
+        const int b0 = (v / t.h_groups) * t.images;
+        const int y0 = (v % t.h_groups) * t.rows;
         const uint32_t dst = base + s * stage_bytes;
         const uint32_t bar = smem_u32(&full_bar[s]);
         mbar_expect_tx(bar, stage_bytes);  // a box counts whole, zero-filled parts too
-        tma_load_4d(dst, &tm_x, bar, c0, kw - 1, y0 + kh - 1, b0);
-        tma_load_4d(dst + box_bytes, &tm_x, bar, c0 + kBoxC, kw - 1, y0 + kh - 1, b0);
+        tma_load_4d(dst, &tm_x, bar, c0, x0 + kw - 1, y0 + kh - 1, b0);
+        tma_load_4d(dst + box_bytes, &tm_x, bar, c0 + kBoxC, x0 + kw - 1, y0 + kh - 1, b0);
 #pragma unroll
         for (int j = 0; j < kDyBoxes; ++j) {
-          tma_load_4d(dst + (2 + j) * box_bytes, &tm_dy, bar, k0 + j * kBoxC, 0, y0, b0);
+          tma_load_4d(dst + (2 + j) * box_bytes, &tm_dy, bar, k0 + j * kBoxC, x0, y0, b0);
         }
       }
     }
@@ -636,6 +643,7 @@ extern "C" int conv3x3_wgrad_bf16(const void* x, const void* dy, void* work, voi
   Bf16Tile t;
   t.C = c;
   t.K = k;
+  t.w_box = w_box;
   t.rows = rows;
   t.images = images;
   t.stage_rows = w_box * rows * images;
@@ -645,14 +653,15 @@ extern "C" int conv3x3_wgrad_bf16(const void* x, const void* dy, void* work, voi
   const size_t smem = static_cast<size_t>(ring) * (2 + dy_boxes) * t.stage_rows * kRowBytes + 1024;
   if (b <= 0 || h <= 0 || w <= 0 || c <= 0 || k <= 0 || c > c_ld || k > k_ld || c_ld % 8 != 0 ||
       k_ld % 8 != 0 || reinterpret_cast<uintptr_t>(x) % 16 != 0 ||
-      reinterpret_cast<uintptr_t>(dy) % 16 != 0 || w_box < w || w_box > 256 || rows < 1 ||
+      reinterpret_cast<uintptr_t>(dy) % 16 != 0 || w_box < 1 || w_box > 256 || rows < 1 ||
       rows > 256 || images < 1 || images > 256 || t.stage_rows % 16 != 0 ||
       t.stage_rows > kMaxStageRows || ring < 2 || ring > kMaxRing || per_split < 1 ||
       smem > static_cast<size_t>(kSmemLimit) - 2 * kMaxRing * sizeof(uint64_t)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   t.h_groups = (h + rows - 1) / rows;
-  t.stages = ((b + images - 1) / images) * t.h_groups;
+  t.w_groups = (w + w_box - 1) / w_box;
+  t.stages = ((b + images - 1) / images) * t.h_groups * t.w_groups;
   if (splits != (t.stages + per_split - 1) / per_split) return static_cast<int>(cudaErrorInvalidValue);
 
   const EncodeTiledFn encode = encode_tiled();

@@ -20,6 +20,7 @@ from jpeg_detection_resnet_ssd_torch.train.trainer import (
     Trainer,
     classification_loss_fn,
     detection_loss_fn,
+    dropout_step_generator,
     step_generator,
 )
 
@@ -35,6 +36,7 @@ __all__ = [
     "build_trainer",
     "classification_loss_fn",
     "detection_loss_fn",
+    "dropout_step_generator",
     "fit",
     "keras_inverse_time_decay",
     "make_validation_fn",

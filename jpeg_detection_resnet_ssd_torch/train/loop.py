@@ -114,9 +114,11 @@ def build_trainer(config: ExperimentConfig, target_encoder=None, augment_fn=None
                   device: str | torch.device | None = None):
     """(Trainer, module, example_inputs) for `config` on `device` (None means
     CUDA and raises without a card).  Weights are the port's init from
-    `torch.Generator` seeded `config.seed`.  The detection task trains with
-    the SSD loss and the selective L2 penalty; the classification task with
-    the cross-entropy and top-1/top-5 metrics, no L2 term (as in the JAX
+    `torch.Generator` seeded `config.seed`.  `config.model` is any registry
+    name.  The detection task trains with the SSD loss and the selective L2
+    penalty (the kernels of the neck and head layers of every SSD family,
+    `losses.default_ssd_reg_filter`); the classification task with the
+    cross-entropy and top-1/top-5 metrics, no L2 term (as in the JAX
     package)."""
     dev = resolve_device(device)
     if config.n_model_shards > 1:
@@ -174,8 +176,9 @@ def fit(
     the latest one.  The loss is read (a synchronisation) only when the
     step count crosses a multiple of `log_every` and at the end, where a
     non-finite value raises `NaNLossError`.  Step s hands the augment hook
-    `step_generator(config.seed + 1, s)`, so a restarted run draws what an
-    uninterrupted one draws.
+    `step_generator(config.seed + 1, s)` and the model's dropout
+    `dropout_step_generator(config.seed + 1, s)`, so a restarted run draws
+    what an uninterrupted one draws.
 
     `steps_per_call` groups that many batches into one `Trainer.train_steps`
     call, with the JAX package's rules: a group never straddles an epoch or

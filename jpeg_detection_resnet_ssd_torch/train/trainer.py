@@ -12,10 +12,14 @@ optimizer and steps them in place, in the JAX step's order:
   detector's selective L2) -> backward -> SGD update -> step + 1.
 
 `pallas_wgrad` scopes `models.layers.pallas_wgrad` to the step's forward,
-so two trainers in one process can differ.  The ported models have no
-dropout; the generator passed to a step reaches only the augment hook.
-Step s of a run seeded `seed` draws from `step_generator(seed, s)`, whether
-it runs alone or in `train_steps`.
+so two trainers in one process can differ.  A step takes two CPU
+generators: one for the augment hook, one for the VGG classifiers' train-
+mode dropout (`models.layers.dropout_rng`, opened around the forward), the
+counterparts of JAX's `aug_rng, drop_rng = split(fold_in(rng, step))`.
+Step s of a run seeded `seed` draws from `step_generator(seed, s)` and
+`dropout_step_generator(seed, s)`, whether it runs alone or in
+`train_steps`.  With `freeze_bn` the forward is in eval mode, so dropout is
+off too, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -39,8 +43,20 @@ from jpeg_detection_resnet_ssd_torch.utils.device import resolve_device
 _MASK64 = (1 << 64) - 1
 
 
+# XORed into a step's word to seed its dropout stream apart from its augment stream.
+_DROPOUT_SALT = 0xD2B74407B1CE6E93
+
+
+def _splitmix64(word: int) -> int:
+    z = (word + 0x9E3779B97F4A7C15) & _MASK64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
+    return z ^ (z >> 31)
+
+
 def step_generator(seed: int, step: int) -> torch.Generator:
-    """The CPU generator of train step `step` in a run seeded `seed`.
+    """The CPU generator of train step `step`'s augment hook in a run seeded
+    `seed`.
 
     The port's counterpart of the JAX package's per-step key
     `fold_in(PRNGKey(seed), step)`: a pure function of the pair, so a run
@@ -48,10 +64,15 @@ def step_generator(seed: int, step: int) -> torch.Generator:
     keys cannot be reproduced in PyTorch, so the rule is the port's own: the
     generator is seeded with splitmix64 of the 64-bit word
     `(seed << 32) + step` (both taken modulo 2**64)."""
-    z = (((seed << 32) + step) + 0x9E3779B97F4A7C15) & _MASK64
-    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _MASK64
-    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _MASK64
-    return torch.Generator().manual_seed(z ^ (z >> 31))
+    return torch.Generator().manual_seed(_splitmix64((seed << 32) + step))
+
+
+def dropout_step_generator(seed: int, step: int) -> torch.Generator:
+    """The CPU generator of train step `step`'s dropout masks in a run
+    seeded `seed`: splitmix64 of the step's word XOR a salt, so it is a pure
+    function of the pair and a stream apart from `step_generator`'s."""
+    word = ((seed << 32) + step) & _MASK64
+    return torch.Generator().manual_seed(_splitmix64(word ^ _DROPOUT_SALT))
 
 
 def detection_loss_fn(ssd_loss: SSDLoss = SSDLoss(), l2_scale: float = 5e-4):
@@ -125,9 +146,12 @@ class Trainer:
             return tuple(self._as_device(a) for a in inputs)
         return self._as_device(inputs)
 
-    def train_step(self, batch: dict, generator: torch.Generator | None = None) -> dict:
+    def train_step(self, batch: dict, generator: torch.Generator | None = None,
+                   dropout_generator: torch.Generator | None = None) -> dict:
         """One optimisation step; returns 0-dim metric tensors on the device
-        (reading them synchronises, so the loop reads them rarely)."""
+        (reading them synchronises, so the loop reads them rarely).
+        `generator` goes to the augment hook, `dropout_generator` to the
+        model's train-mode dropout (a model with dropout needs one)."""
         if self.augment_fn is not None:
             batch = self.augment_fn(batch, generator)
         batch = dict(batch)
@@ -141,7 +165,7 @@ class Trainer:
             batch["targets"] = self._as_device(batch["targets"])
 
         self.model.train(not self.freeze_bn)
-        with layers.pallas_wgrad(self.pallas_wgrad):
+        with layers.pallas_wgrad(self.pallas_wgrad), layers.dropout_rng(dropout_generator):
             outputs = self.model(inputs)
         loss, metrics = self.loss_fn(self.model, outputs, batch)
         self.optimizer.zero_grad(set_to_none=True)
@@ -158,10 +182,13 @@ class Trainer:
         """K sequential steps (the JAX package fuses them into one program;
         the math is the same); each metric comes back with shape (K,).
 
-        Each step draws from `step_generator(seed, s)`, with s read from
-        `self.step` as the step starts, as the JAX step folds its key from
-        `state.step`: K steps here draw what K `train_step` calls draw."""
-        rows = [self.train_step(b, step_generator(seed, self.step)) for b in batches]
+        Each step draws from `step_generator(seed, s)` and
+        `dropout_step_generator(seed, s)`, with s read from `self.step` as
+        the step starts, as the JAX step folds its key from `state.step`: K
+        steps here draw what K `train_step` calls draw."""
+        rows = [self.train_step(b, step_generator(seed, self.step),
+                                dropout_step_generator(seed, self.step))
+                for b in batches]
         return {k: torch.stack([r[k] for r in rows]) for k in rows[0]}
 
     def eval_step(self):

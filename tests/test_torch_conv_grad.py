@@ -145,8 +145,48 @@ def test_switch_routes_24_convs_of_ssd_custom(monkeypatch):
 STEP_SHAPES = [(38, 256, 256), (38, 128, 128), (19, 256, 256), (19, 128, 128), (10, 256, 256),
                (5, 512, 512), (38, 384, 100), (19, 512, 150), (10, 1024, 150), (5, 1024, 150),
                (3, 256, 100), (1, 256, 100)]
+# Maps wider than a stage holds (W > 128: ssd300_vgg's conv1_x and conv2_x,
+# the VGG classifiers' block 1) at batch 1-2; the column groups do not depend
+# on B.
+WIDE_CASES = [(1, 300, 300, 3, 64), (1, 300, 300, 64, 64), (1, 150, 150, 64, 128),
+              (1, 224, 224, 3, 64), (2, 224, 224, 64, 64)]
 PLAN_CASES = ([(32, h, h, c, k) for h, c, k in STEP_SHAPES]
-              + [(1, 7, 9, 40, 150), (3, 7, 9, 40, 24), (1, 1, 1, 256, 100), (1, 3, 3, 256, 100)])
+              + [(1, 7, 9, 40, 150), (3, 7, 9, 40, 24), (1, 1, 1, 256, 100), (1, 3, 3, 256, 100)]
+              + WIDE_CASES)
+# The plans that the kernel ran before rows wider than a stage were cut into
+# column groups, (c_pad, k_pad, w_box, rows, images, n_tile, h_groups,
+# stages, per_split, splits, ring): the detector's and the classifiers'
+# shapes and the ragged card cases, each still one column group.
+FIT_PLANS = {
+    (32, 38, 38, 256, 256): (256, 256, 40, 1, 2, 256, 38, 608, 87, 7, 3),
+    (32, 38, 38, 128, 128): (128, 128, 40, 1, 2, 128, 38, 608, 44, 14, 5),
+    (32, 19, 19, 256, 256): (256, 256, 20, 1, 4, 256, 19, 152, 22, 7, 3),
+    (32, 19, 19, 128, 128): (128, 128, 20, 1, 4, 128, 19, 152, 14, 11, 5),
+    (32, 10, 10, 256, 256): (256, 256, 10, 1, 8, 256, 10, 40, 10, 4, 3),
+    (32, 5, 5, 512, 512): (512, 512, 5, 1, 16, 256, 5, 10, 10, 1, 3),
+    (32, 38, 38, 384, 100): (384, 104, 40, 1, 2, 104, 38, 608, 152, 4, 5),
+    (32, 19, 19, 512, 150): (512, 152, 20, 1, 4, 152, 19, 152, 51, 3, 4),
+    (32, 10, 10, 1024, 150): (1024, 152, 10, 1, 8, 152, 10, 40, 40, 1, 4),
+    (32, 5, 5, 1024, 150): (1024, 152, 5, 1, 16, 152, 5, 10, 10, 1, 4),
+    (32, 3, 3, 256, 100): (256, 104, 3, 1, 16, 104, 3, 6, 6, 1, 6),
+    (32, 1, 1, 256, 100): (256, 104, 1, 1, 16, 104, 1, 2, 2, 1, 6),
+    (1, 7, 9, 40, 150): (40, 152, 12, 4, 1, 152, 2, 2, 2, 1, 6),
+    (3, 7, 9, 40, 24): (40, 24, 10, 2, 4, 64, 4, 4, 1, 4, 6),
+    (1, 1, 1, 256, 100): (256, 104, 1, 1, 16, 104, 1, 1, 1, 1, 6),
+    (1, 3, 3, 256, 100): (256, 104, 4, 2, 2, 104, 2, 2, 2, 1, 6),
+    (64, 28, 28, 256, 256): (256, 256, 28, 1, 4, 256, 28, 448, 64, 7, 2),
+    (64, 28, 28, 128, 128): (128, 128, 28, 1, 4, 128, 28, 448, 32, 14, 4),
+    (64, 14, 14, 256, 256): (256, 256, 14, 1, 8, 256, 14, 112, 16, 7, 2),
+    (64, 14, 14, 128, 128): (128, 128, 14, 1, 8, 128, 14, 112, 8, 14, 4),
+    (64, 7, 7, 256, 256): (256, 256, 7, 1, 16, 256, 7, 28, 7, 4, 2),
+    (64, 4, 4, 512, 512): (512, 512, 4, 2, 16, 256, 2, 8, 8, 1, 2),
+    (64, 56, 56, 64, 64): (64, 64, 56, 1, 2, 64, 56, 1792, 128, 14, 5),
+    (64, 7, 7, 512, 512): (512, 512, 7, 1, 16, 256, 7, 28, 28, 1, 2),
+    (32, 38, 38, 128, 100): (128, 104, 40, 1, 2, 104, 38, 608, 44, 14, 5),
+    (32, 38, 38, 128, 150): (128, 152, 40, 1, 2, 152, 38, 608, 44, 14, 4),
+    (32, 19, 19, 256, 100): (256, 104, 20, 1, 4, 104, 19, 152, 22, 7, 5),
+    (32, 19, 19, 256, 150): (256, 152, 20, 1, 4, 152, 19, 152, 22, 7, 4),
+}
 
 
 def _split_stages(plan):
@@ -161,21 +201,24 @@ def _emulate_plan(plan, x, dy):
     order, in float32."""
     b, h, w, c = x.shape
     k = dy.shape[-1]
-    b_pad, h_pad = plan.stages // plan.h_groups * plan.images, plan.h_groups * plan.rows
+    b_pad = plan.stages // (plan.h_groups * plan.w_groups) * plan.images
+    h_pad, w_pad = plan.h_groups * plan.rows, plan.w_groups * plan.w_box
     # Every coordinate a box reaches (x's from -1), zero outside the tensors.
-    xz = x.new_zeros(b_pad, h_pad + 2, plan.w_box + 2, plan.c_pad)
+    xz = x.new_zeros(b_pad, h_pad + 2, w_pad + 2, plan.c_pad)
     xz[:b, 1:h + 1, 1:w + 1, :c] = x
-    dyz = dy.new_zeros(b_pad, h_pad, plan.w_box, plan.k_pad)
+    dyz = dy.new_zeros(b_pad, h_pad, w_pad, plan.k_pad)
     dyz[:b, :h, :w, :k] = dy
     total = None
     for stages in _split_stages(plan):
         acc = x.new_zeros(9, plan.c_pad, plan.k_pad)
         for u in stages:
-            b0, y0 = plan.stage_origin(u)
-            d = dyz[b0:b0 + plan.images, y0:y0 + plan.rows].reshape(plan.stage_rows, -1)
+            b0, y0, x0 = plan.stage_origin(u)
+            d = dyz[b0:b0 + plan.images, y0:y0 + plan.rows, x0:x0 + plan.w_box]
+            d = d.reshape(plan.stage_rows, -1)
             for tap in range(9):
                 kh, kw = divmod(tap, 3)
-                a = xz[b0:b0 + plan.images, y0 + kh:y0 + kh + plan.rows, kw:kw + plan.w_box]
+                a = xz[b0:b0 + plan.images, y0 + kh:y0 + kh + plan.rows,
+                       x0 + kw:x0 + kw + plan.w_box]
                 acc[tap] += a.reshape(plan.stage_rows, -1).T @ d
         total = acc if total is None else total + acc
     return total[:, :c, :k].reshape(3, 3, c, k)
@@ -185,7 +228,8 @@ def _emulate_plan(plan, x, dy):
 def test_plan_covers_every_row_of_p_once(b, h, w, c, k):
     plan = conv_grad.tiling_plan(b, h, w, c, k)
     assert plan.stage_rows % 16 == 0 and plan.stage_rows <= conv_grad.MAX_STAGE_ROWS
-    assert plan.w_box >= w and plan.n_tile in conv_grad.N_TILES
+    assert plan.n_tile in conv_grad.N_TILES and plan.w_box * plan.w_groups >= w
+    assert plan.w_groups == 1 or plan.w_box % 16 == 0
     assert plan.c_pad % 8 == 0 and plan.k_pad % 8 == 0 and plan.c_pad >= c and plan.k_pad >= k
     assert (plan.splits - 1) * plan.per_split < plan.stages <= plan.splits * plan.per_split
     stage_bytes = (2 + -(-plan.n_tile // conv_grad.BOX_C)) * plan.stage_rows * 128
@@ -193,9 +237,17 @@ def test_plan_covers_every_row_of_p_once(b, h, w, c, k):
     seen = torch.zeros(b, h, w, dtype=torch.int32)
     for stages in _split_stages(plan):
         for u in stages:
-            b0, y0 = plan.stage_origin(u)
-            seen[b0:b0 + plan.images, y0:y0 + plan.rows] += 1  # a box spans all W columns
+            b0, y0, x0 = plan.stage_origin(u)
+            seen[b0:b0 + plan.images, y0:y0 + plan.rows, x0:x0 + plan.w_box] += 1
     assert bool((seen == 1).all())
+
+
+@pytest.mark.parametrize("shape", list(FIT_PLANS))
+def test_plan_is_unchanged_where_a_row_fits_a_stage(shape):
+    plan = conv_grad.tiling_plan(*shape)
+    assert plan.w_groups == 1
+    got = dataclasses.astuple(plan)
+    assert got[:7] + got[8:] == FIT_PLANS[shape]
 
 
 @pytest.mark.parametrize("b,h,w,c,k", PLAN_CASES)

@@ -337,6 +337,33 @@ def test_filter_grad_kernel_at_the_classification_shapes(cuda, h, c, k, dtype):
     assert torch.equal(conv_grad.conv3x3_filter_grad(x, dy).view(torch.int32), got.view(torch.int32))
 
 
+# Maps wider than a stage holds (W > 128), whose rows the plan cuts into
+# column groups (C3), (B, H, W, C, K): ssd300_vgg's conv1_x and conv2_x at
+# batch 32, the VGG classifiers' block 1 at batch 64, and a ragged last group.
+WIDE_WGRAD_SHAPES = [(32, 300, 300, 3, 64), (32, 300, 300, 64, 64), (32, 150, 150, 64, 128),
+                     (32, 150, 150, 128, 128), (64, 224, 224, 3, 64), (64, 224, 224, 64, 64),
+                     (3, 7, 201, 40, 24)]
+
+
+@pytest.mark.parametrize("b,h,w,c,k", WIDE_WGRAD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_filter_grad_kernel_on_maps_wider_than_a_stage(cuda, b, h, w, c, k, dtype):
+    """Within 1e-4 of the largest value, and a second call bit-identical."""
+    gen = torch.Generator(device="cpu").manual_seed(w * 1000 + c)
+    x = torch.randn(b, h, w, c, generator=gen).to(cuda, dtype)
+    dy = torch.randn(b, h, w, k, generator=gen).to(cuda, dtype)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    plan = conv_grad.tiling_plan(b, h, w, c, k)
+    assert plan.w_groups > 1 and plan.w_groups * plan.w_box >= w
+    before = conv_grad.LAUNCHES
+    got = conv_grad.conv3x3_filter_grad(x, dy)
+    torch.cuda.synchronize()
+    assert conv_grad.LAUNCHES == before + 1
+    ref = conv_grad.conv3x3_filter_grad_reference(x, dy)
+    assert float((got - ref).abs().max()) <= 1e-4 * float(ref.abs().max())
+    assert torch.equal(conv_grad.conv3x3_filter_grad(x, dy).view(torch.int32), got.view(torch.int32))
+
+
 @pytest.mark.parametrize("version", ["v1", "v2"])
 def test_classification_augment_on_the_card_equals_the_cpu(cuda, version):
     """The classification augments' apply with one set of host draws, on the

@@ -9,6 +9,7 @@ restart.
 
 import csv
 import os
+import shutil
 
 import numpy as np
 import pytest
@@ -17,6 +18,7 @@ import torch
 from jpeg_detection_resnet_ssd_tpu.train import config as jax_config
 from jpeg_detection_resnet_ssd_tpu.train import schedules as jax_schedules
 from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
+from jpeg_detection_resnet_ssd_torch.models import layers
 from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
 from jpeg_detection_resnet_ssd_torch.train import (
     CheckpointManager,
@@ -25,6 +27,7 @@ from jpeg_detection_resnet_ssd_torch.train import (
     Trainer,
     build_optimizer,
     build_trainer,
+    dropout_step_generator,
     fit,
     make_validation_fn,
     schedules,
@@ -179,12 +182,13 @@ def test_fit_nan_guard(tmp_path):
 
 
 def test_what_is_not_ported_names_its_roadmap_item():
-    """Meshes (A13) and the VGG families (A12b) still raise; the memory
+    """Meshes (A13) still raise; the VGG classifiers (A12b), the memory
     levers (A15) and the classification task (A12a) build."""
-    for cfg, item in ((ExperimentConfig(n_model_shards=2), "A13"),
-                      (ExperimentConfig(model="vgga", task="classification"), "A12b")):
-        with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-            build_trainer(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+        build_trainer(ExperimentConfig(n_model_shards=2), device="cpu")
+    _, vgg, _ = build_trainer(ExperimentConfig(model="vgga", task="classification",
+                                               model_kwargs={"num_classes": 7}), device="cpu")
+    assert vgg.head.predictions.weight.shape == (7, 4096) and vgg.head.fc1.weight.shape == (4096, 25088)
     from jpeg_detection_resnet_ssd_torch.train import BF16MomentumSGD
 
     assert isinstance(build_optimizer(ExperimentConfig(momentum_dtype="bfloat16"), [torch.zeros(1)]),
@@ -261,3 +265,69 @@ def test_train_steps_draw_what_single_steps_draw():
     trainer.train_steps([batch] * 3, seed=9)
     assert trainer.step == 8
     assert draws == [float(torch.rand((), generator=step_generator(9, s))) for s in (5, 6, 7)]
+
+
+def _vgg_batches(n, seed=0):
+    rng = np.random.default_rng(seed)
+    return [{"inputs": (rng.normal(0, 100, (1, 28, 28, 64)).astype(np.float32),
+                        rng.normal(0, 30, (1, 14, 14, 128)).astype(np.float32)),
+             "labels": rng.integers(0, 10, 1).astype(np.int32)} for _ in range(n)]
+
+
+_DROPOUT_MASK = layers.dropout_mask
+
+
+def _recording_dropout(monkeypatch):
+    """Record every dropout mask the port draws."""
+    masks = []
+
+    def record(shape, keep_prob, generator):
+        masks.append(_DROPOUT_MASK(shape, keep_prob, generator))
+        return masks[-1]
+
+    monkeypatch.setattr(layers, "dropout_mask", record)
+    return masks
+
+
+def _vgg_config(**kw):
+    return ExperimentConfig(model="vgga_dct", task="classification", compute_dtype="float32",
+                            batch_size=1, learning_rate=1e-2, l2_regularization=0.0,
+                            model_kwargs={"num_classes": 10}, **kw)
+
+
+def test_grouped_fit_draws_the_dropout_masks_of_single_steps(monkeypatch):
+    """C2 with dropout: `fit(steps_per_call=3)` on a VGG classifier draws the
+    masks of `fit(steps_per_call=1)` and trains to the same weights."""
+    runs = []
+    for spc in (1, 3):
+        masks = _recording_dropout(monkeypatch)
+        trainer, _ = fit(_vgg_config(epochs=1, steps_per_epoch=3), _vgg_batches(3),
+                         steps_per_call=spc, device="cpu")
+        runs.append((trainer, masks))
+    (single, single_masks), (grouped, grouped_masks) = runs
+    assert len(single_masks) == 6 and all(torch.equal(a, b)
+                                          for a, b in zip(single_masks, grouped_masks, strict=True))
+    assert not torch.equal(single_masks[0], single_masks[2])  # each step draws anew
+    for (name, p_s), (_, p_g) in zip(single.model.state_dict().items(),
+                                     grouped.model.state_dict().items()):
+        assert torch.equal(p_s, p_g), name
+
+
+def test_resumed_fit_draws_the_dropout_masks_of_an_uninterrupted_fit(monkeypatch, tmp_path):
+    """C1 with dropout: 2 epochs straight against 1 epoch and a restart to
+    2; step s draws from `dropout_step_generator(seed + 1, s)`."""
+
+    def run(run_dir, epochs, restart=False):
+        masks = _recording_dropout(monkeypatch)
+        fit(_vgg_config(epochs=epochs, steps_per_epoch=2, restart=restart), _vgg_batches(2),
+            run_dir=run_dir, device="cpu")
+        return masks
+
+    straight = run(None, 2)
+    run(str(tmp_path), 1)
+    then = run(str(tmp_path), 2, restart=True)
+    shutil.rmtree(tmp_path)  # two checkpoints of 130M parameters and their momentum
+    assert len(straight) == 8 and len(then) == 4
+    assert all(torch.equal(a, b) for a, b in zip(straight[4:], then, strict=True))
+    want = _DROPOUT_MASK((1, 4096), 0.5, dropout_step_generator(1, 2))
+    assert torch.equal(then[0], want)

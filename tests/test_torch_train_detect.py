@@ -159,6 +159,8 @@ def test_first_float32_step_matches_jax(setup):
 @pytest.mark.parametrize("extra,message", [
     (["--device-augment", "--config", "deconv.json"], "requires input_format='dct'"),
     (["--pack-cache", "x"], "only takes effect together with --device-augment"),
+    (["--device-augment", "--archi", "deconv"], "requires input_format='dct'"),
+    (["--archi", "resnet"], "unknown --archi 'resnet'"),
 ])
 def test_device_augment_flag_errors(setup, extra, message):
     cfg = setup["tmp"] / "deconv.json"
@@ -170,17 +172,58 @@ def test_device_augment_flag_errors(setup, extra, message):
 
 
 @pytest.mark.parametrize("extra,item", [
-    (["--vgg"], "A12b"), (["--archi", "deconv"], "A12b"), (["--n-model-shards", "2"], "A13"),
+    (["--n-model-shards", "2"], "A13"),
     (["--pretrained-weights", "https://example.invalid/w.h5"], "A14"),
-    (["--pretrained-weights", "ssd300_voc07"], "A14"), (["--config", "vgg.json"], "A12b"),
+    (["--pretrained-weights", "ssd300_voc07"], "A14"),
 ])
 def test_what_is_not_ported_names_its_roadmap_item(setup, extra, item):
-    cfg = setup["tmp"] / "vgg.json"
-    cfg.write_text(ExperimentConfig(model="ssd300_vgg", momentum_dtype="bfloat16").to_json())
-    extra = [str(cfg) if a == "vgg.json" else a for a in extra]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         port_cli.main(["train-detect", "--voc-root", str(setup["voc"]), "--device", "cpu",
                        "--output-dir", str(setup["tmp"] / "exp_np"), *extra])
+
+
+# The model and input format that the JAX CLI's train-detect picks for each
+# flag set (`--config` names its own model and format), one CPU step of it
+# at batch 1 (bf16 compute but for the float32 config), and `evaluate` on
+# the run, which builds the run's model and reads its input format.
+@pytest.mark.parametrize("extra,model,input_format", [
+    (["--vgg"], "ssd300_vgg_dct", "dct"),
+    (["--archi", "deconv"], "ssd300_deconv", "dct_deconv"),
+    (["--archi", "up_sampling"], "ssd300_up_sampling", "dct"),
+    (["--archi", "cb5_only"], "ssd300_cb5_only", "dct"),
+    (["--archi", "y_cb4_cbcr_cb5"], "ssd300_y_cb4_cbcr_cb5", "dct"),
+    (["--config", "vgg.json"], "ssd300_vgg", "rgb"),
+])
+def test_other_families_train_one_cpu_step(setup, extra, model, input_format):
+    cfg = setup["tmp"] / "vgg.json"
+    cfg.write_text(ExperimentConfig(model="ssd300_vgg", input_format="rgb", compute_dtype="float32",
+                                    momentum_dtype="bfloat16").to_json())
+    extra = [str(cfg) if a == "vgg.json" else a for a in extra]
+    out = setup["tmp"] / f"exp_{model}"
+    run_dir, row, _ = run(port_cli, ["train-detect", "--voc-root", setup["voc"], "--device", "cpu",
+                                     "--output-dir", out, "--batch-size", 1, "--steps-per-epoch", 1,
+                                     "--epochs", 1, "--num-workers", 1, *extra])
+    saved = ExperimentConfig.load(os.path.join(run_dir, "saved_config.json"))
+    _, ev, _ = run(port_cli, ["evaluate", "--run-dir", run_dir, "--voc-root", setup["voc"],
+                              "--batch-size", 3, "--device", "cpu"])
+    shutil.rmtree(out)  # the checkpoint
+    assert row["step"] == 1 and np.isfinite(row["total_loss"]) and row["reg"] > 0
+    assert (saved.model, saved.input_format) == (model, input_format)
+    assert len(ev["AP"]) == 20 and 0.0 <= ev["mAP"] <= 1.0
+
+
+@pytest.mark.parametrize("model", ["ssd300_vgg", "ssd300_vgg_dct_image", "ssd300_deconv"])
+def test_infer_feeds_each_model_its_input_contract(setup, model):
+    """`infer --model` packs the image as the model reads it: RGB pixels,
+    the DCT image, or Y, Cb and Cr apart."""
+    image = sorted((setup["voc"] / "JPEGImages").iterdir())[0]
+    output = setup["tmp"] / f"{model}.png"
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        port_cli.main(["infer", "--image", str(image), "--model", model, "--output", str(output),
+                       "--confidence", "0.0", "--device", "cpu"])
+    assert re.fullmatch(rf"\d+ detections -> {re.escape(str(output))}", out.getvalue().strip())
+    assert output.stat().st_size > 0
 
 
 def test_train_detect_defaults_to_cuda(setup, monkeypatch):
