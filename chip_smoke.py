@@ -3,7 +3,8 @@
 
     python3 chip_smoke.py        # from the repository root; one card, nvcc
 
-Seven paths, the first five at the full width of `ssd300_ssd_custom`:
+Eight paths, the first five and the last at the full width of
+`ssd300_ssd_custom`:
   * inference: `build_model` -> forward on seeded DCT planes ->
     `make_inference_fn` (candidate selection, batched greedy NMS on the CUDA
     kernel, global top-200) -> (B, 200, 6) detections;
@@ -37,7 +38,13 @@ Seven paths, the first five at the full width of `ssd300_ssd_custom`:
     `ssd300_vgg_dct` (the reference's DCT VGG SSD300) at full width and
     depth at batch 32 bf16, then `--restart`, and `--archi y_cb4_cbcr_cb5`;
     the forward of all 13 VGG and other SSD300 names; B4 on maps wider than
-    a stage (C3).
+    a stage (C3);
+  * serving: phase 6's calibrated `ssd300_ssd_custom` with its BatchNorm
+    folded (`serve.fold_batch_norm`), exported with its shared decode as a
+    symbolic-batch `torch.export` artifact (`serve.export_serving_artifact`)
+    and loaded back (`serve.load_serving_artifact`): the artifact's NMS is
+    the custom operator that launches the NMS kernel; and the int8 model
+    (`serve.quantize_for_serving`) and its artifact.
     The card's machine has no libjpeg, so no step decodes a JPEG here.
 
 Phases (any failure exits non-zero):
@@ -168,11 +175,30 @@ Phases (any failure exits non-zero):
      step, warm steps/s), and `--archi y_cb4_cbcr_cb5` for 3 steps (B4 20 a
      step); the ssd300_vgg_dct bf16 step with B4 against cuDNN's dW in four
      rotating rounds, and a profiler window;
+ 9h. serving (ROADMAP A14a, A14b) on phase 6's calibrated model: the
+     folded copy holds no BatchNorm and its f32 forward at batch 2 is within
+     FOLD_TOL of the unfolded one; kernel launches and device time per
+     forward (profiler), unfolded against folded, at batch 32 bf16 and
+     batch 1 f32, and forward + shared decode in 3 rotating rounds of CUDA
+     events; the folded f32 forward + shared decode exported on the card
+     with a symbolic batch (export seconds and bytes), loaded and called at
+     batches 1, 8 and 32 (NMS launches reset just before and read just
+     after: one per call) and held to the in-process folded path and to the
+     plain NMS's decode (ARTIFACT_TOL), the kernel mask equal to the plain
+     mask on those candidates; the artifact against the in-process path at
+     batch 32 (CUDA events) and at batch 1 (host clock), 2 rounds; int8
+     calibrated on 4 seeded batches of 8: `torch._int_mm` accumulators on
+     the card equal to the CPU's at every distinct conv shape of a batch-1
+     request, the raw output's relative RMS against float, the int8
+     artifact (= in-process at batch 32) and its bytes against the float
+     artifact's, and the int8 forward at batch 32 against the folded bf16
+     and f32 forwards in 3 rotating rounds;
  10. the `kernels` JSON line (B3's and B4's entries with a `classification`
      part: the train-classify run's launches and the per-step times at the
      classification shapes; every entry with a `vgg` part: the launches of
      `train-detect --vgg`'s 3 steps (B1: of 9g's three decodes), and for B4
-     the per-step times at ssd300_vgg_dct's 13 shapes and the wide maps'),
+     the per-step times at ssd300_vgg_dct's 13 shapes and the wide maps';
+     B1's entry with a `serve` part: its launches inside 9h's artifact),
      the card line, and the final JSON line.
 
 Weights are the port's seeded init (torch.Generator seeded 0); for inference
@@ -184,8 +210,12 @@ the activations, and the box offsets, to overflow.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
+import copy
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -775,7 +805,7 @@ def run_inference(dev, card):
     return ({"launches": launches, "ms": kernel_ms, "plain_ms": plain_ms,
              "bound_ms": bound_ms, "bound_by": bound_by},
             {"model_f32": model_f32, "model_bf16": model_bf16, "raw_f32": raw_f32_b32,
-             "request": (y1, c1)})
+             "request": (y1, c1), "planes": (y32, c32)})
 
 
 def profile_steps(step, card, step_ms, n=3, label="train steps with both kernels"):
@@ -818,6 +848,49 @@ def device_split(fn, n=20):
     split = [(e.key, e.self_device_time_total / 1e3 / n) for e in prof.key_averages()
              if e.device_type == torch.autograd.DeviceType.CUDA]
     return split or [("no device time recorded (not measured)", float("nan"))]
+
+
+def forward_launches(fn, n=3):
+    """(kernel launches, kernels' device ms) per call of `fn`, from
+    torch.profiler over n calls after one untraced call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+    kernels = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return sum(e.count for e in kernels) / n, sum(e.self_device_time_total for e in kernels) / 1e3 / n
+
+
+def request_ms(fn, requests=20, windows=5):
+    """Host ms of one request (`fn()` then synchronize), mean of `requests` a
+    window, after 5 untimed requests: (median, range) over `windows`
+    windows."""
+    for _ in range(5):
+        fn()
+    torch.cuda.synchronize()
+    per_window = []
+    for _ in range(windows):
+        t0 = time.perf_counter()
+        for _ in range(requests):
+            fn()
+            torch.cuda.synchronize()
+        per_window.append((time.perf_counter() - t0) * 1e3 / requests)
+    return float(np.median(per_window)), f"[{min(per_window):.4f}-{max(per_window):.4f}]"
+
+
+def rounds(arms: dict, measure, n_rounds: int) -> dict:
+    """`measure(fn)` -> (ms, range) of each arm in `n_rounds` rotating
+    rounds (round r starts at arm r mod len(arms)); {arm: [ms per round]}."""
+    names = list(arms)
+    out = {name: [] for name in names}
+    for r in range(n_rounds):
+        for name in names[r % len(names):] + names[:r % len(names)]:
+            out[name].append(measure(arms[name])[0])
+    return out
 
 
 def encoder_sims(encoder, batch):
@@ -1263,7 +1336,7 @@ def eval_batches(rng, infer, n_images=EVAL_IMAGES, batch=EVAL_BATCH):
     return out
 
 
-def run_evaluate(card, model_f32, model_bf16, raw_f32, request):
+def run_evaluate(card, model_f32, model_bf16, raw_f32, request, planes):
     """Phase 9d: the evaluate path (`DetectionEvaluator` over the `exact`
     inference function) and the A16 decoders on phase 6's calibrated model,
     in float32 with TF32 off; then the evaluate loop's and a request's
@@ -1387,19 +1460,8 @@ def run_evaluate(card, model_f32, model_bf16, raw_f32, request):
     decode_exact = decode["kernel"]
     for label, model in (("f32", model_f32), ("bf16", model_bf16)):
         with torch.no_grad():
-            for _ in range(5):
-                decode_exact(model(request))
-        torch.cuda.synchronize()
-        per_window = []
-        for _ in range(5):
-            t0 = time.perf_counter()
-            for _ in range(20):
-                with torch.no_grad():
-                    decode_exact(model(request))
-                torch.cuda.synchronize()
-            per_window.append((time.perf_counter() - t0) * 1e3 / 20)
-        print(f"    batch-1 latency, forward + exact decode, {label}: "
-              f"{float(np.median(per_window)):.4f} ms [{min(per_window):.4f}-{max(per_window):.4f}] "
+            ms, spread = request_ms(lambda: decode_exact(model(request)))
+        print(f"    batch-1 latency, forward + exact decode, {label}: {ms:.4f} ms {spread} "
               f"(host clock to synchronize, mean of 20 requests a window)  [{card}]")
 
 
@@ -1457,8 +1519,6 @@ def write_detect_inputs(root: str, n: int = DETECT_IMAGES, side: int = DETECT_SI
 def run_cli(argv) -> tuple[str, dict]:
     """`cli.main(argv)` in this process; returns the run dir and the last
     history row that it prints."""
-    import contextlib
-    import io
     import re
 
     from jpeg_detection_resnet_ssd_torch.cli import main as cli
@@ -2184,6 +2244,223 @@ def run_other_families(dev, card):
                       "shapes": [list(t[:4]) for t in VGG_WGRAD_SHAPES if t[4]], "wide": wide}}
 
 
+# Phase 9h: serving (ROADMAP A14a, A14b) on phase 6's calibrated ssd_custom.
+SERVE_TOP_K = 200  # `export`'s default decode
+FOLD_TOL = 1e-3  # folded vs unfolded f32 forward, times max |unfolded| (see run_serving)
+ARTIFACT_TOL = 1e-5  # loaded artifact vs in-process folded path, times max |in-process|
+
+
+def run_serving(dev, card, model_f32, model_bf16, raw_f32, request, planes):
+    """Phase 9h: BatchNorm folding, the exported artifact and int8 on phase
+    6's calibrated `ssd300_ssd_custom` (full width and depth), TF32 off.
+
+    The folded forward is held to the unfolded one within FOLD_TOL of the
+    largest output: this random calibrated model's float32 forward is itself
+    ~1.2e-4 of its largest output away from a float64 forward (CPU
+    measurement), and folding reassociates one multiply per BatchNorm, so
+    1e-4 is inside its rounding noise.  The artifact replays the in-process
+    folded path's operations (ARTIFACT_TOL)."""
+    from jpeg_detection_resnet_ssd_torch.boxes.anchors import AnchorSpec
+    from jpeg_detection_resnet_ssd_torch.boxes.decode import select_candidates
+    from jpeg_detection_resnet_ssd_torch.models import make_inference_fn
+    from jpeg_detection_resnet_ssd_torch.ops import batched_nms
+    from jpeg_detection_resnet_ssd_torch.serve import (
+        build_serving_fn, export_serving_artifact, fold_batch_norm, load_serving_artifact,
+        quantize_for_serving,
+    )
+    from jpeg_detection_resnet_ssd_torch.serve.quantize import QuantizedConv
+    from jpeg_detection_resnet_ssd_torch.cli import main as cli
+    from jpeg_detection_resnet_ssd_torch.eval import DetectionEvaluator
+    from jpeg_detection_resnet_ssd_torch.train import CheckpointManager, ExperimentConfig, build_trainer
+    from jpeg_detection_resnet_ssd_torch.train.config import create_run_dir
+
+    y32, c32 = planes
+    print("[9h] serving: BatchNorm folding, the torch.export artifact (B1 inside), int8")
+    t_phase = time.perf_counter()
+    shared = make_inference_fn(n_classes=20, spec=AnchorSpec(), candidate_selector="shared")
+    folded = {"f32": fold_batch_norm(model_f32), "bf16": fold_batch_norm(model_bf16)}
+    n_bn = sum(isinstance(m, torch.nn.BatchNorm2d) for m in model_f32.modules())
+    check(not any(isinstance(m, torch.nn.BatchNorm2d) for m in folded["f32"].modules()),
+          f"the folded copy holds none of the model's {n_bn} BatchNorms")
+
+    # 1. Folding: outputs, launches, forward + shared decode in rotating rounds.
+    x2 = (y32[:2], c32[:2])
+    with torch.no_grad():
+        a, b = model_f32(x2), folded["f32"](x2)
+    err = float((a - b).abs().max()) / float(a.abs().max())
+    check(bool(torch.isfinite(b).all()) and err <= FOLD_TOL,
+          f"folded vs unfolded f32 forward at batch 2: max |diff| {err:.3g} of the largest output "
+          f"(tolerance {FOLD_TOL:g})")
+    arms = {
+        "bf16 batch 32": ((y32, c32), model_bf16, folded["bf16"]),
+        "f32 batch 1": (request, model_f32, folded["f32"]),
+    }
+    with torch.no_grad():
+        for label, (x, plain, fold) in arms.items():
+            (l0, d0), (l1, d1) = forward_launches(lambda: plain(x)), forward_launches(lambda: fold(x))
+            print(f"    forward launches (profiler), {label}: unfolded {l0:.0f}, folded {l1:.0f} "
+                  f"({l1 - l0:+.0f}); kernels' device time {d0:.4f} -> {d1:.4f} ms  [{card}]")
+        for label, (x, plain, fold) in arms.items():
+            times = rounds({"unfolded": lambda: shared(plain(x)), "folded": lambda: shared(fold(x))},
+                           lambda fn: timed(fn, 10), 3)
+            print(f"    forward + shared decode, {label}, 3 rotating rounds (CUDA events, median of 5 "
+                  f"windows each): unfolded {times['unfolded']}, folded {times['folded']} ms  [{card}]")
+
+    # 2. The artifact through the command line: a run dir holding phase 6's
+    # calibrated weights, `export --symbolic-batch --candidate-selector
+    # shared` on the card (the folded f32 forward + the shared decode), then
+    # the loaders of `serve` and of `evaluate/infer --exported`.
+    work = tempfile.mkdtemp(prefix="serve_")
+    config = ExperimentConfig(compute_dtype="float32", output_dir=os.path.join(work, "exp"))
+    run_dir = create_run_dir(config)
+    trainer, module, _ = build_trainer(config, device=dev)
+    module.load_state_dict(model_f32.state_dict())
+    CheckpointManager(os.path.join(run_dir, "checkpoints")).save(0, trainer)
+    del trainer, module
+    out_dir = os.path.join(work, "artifact")
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        cli.main(["export", "--run-dir", run_dir, "--output", out_dir, "--symbolic-batch",
+                  "--batch-size", "2", "--candidate-selector", "shared"])
+    export_s = time.perf_counter() - t0
+    printed = json.loads(printed.getvalue().strip().splitlines()[-1])
+    fn, manifest = load_serving_artifact(out_dir)
+    print(f"    cli export --run-dir (build, restore, fold, torch.export, save): {export_s:.2f} s, "
+          f"{manifest['bytes']} bytes, device {manifest['device']}, inputs {manifest['inputs']}")
+    check(sorted(os.listdir(out_dir)) == ["manifest.json", "model.pt2"]
+          and printed["bytes"] == manifest["bytes"] and manifest["device"].startswith("cuda")
+          and manifest["symbolic_batch"] and manifest["decode"]["candidate_selector"] == "shared",
+          "export wrote model.pt2 and manifest.json: a symbolic-batch CUDA program")
+    serving = build_serving_fn(model_f32, decode_fn=make_inference_fn(
+        n_classes=20, spec=AnchorSpec(), candidate_selector="shared", top_k=SERVE_TOP_K))
+    batches = ((y32[:1], c32[:1]), (y32[:8], c32[:8]), (y32, c32))
+    batched_nms.LAUNCHES = 0  # the main path of this phase: the loaded artifact at 3 batches
+    got = [fn(*x) for x in batches]
+    torch.cuda.synchronize()
+    serve_launches = batched_nms.LAUNCHES
+    check(serve_launches == len(batches), f"B1 launched inside the artifact: {serve_launches} "
+          f"launches for {len(batches)} calls")
+    kw = dict(n_classes=20, candidate_selector="shared", top_k=SERVE_TOP_K, device=dev)
+    plain_nms = make_inference_fn(spec=AnchorSpec(), nms_impl="reference", **kw)
+    mask_err = 0
+    for x, det in zip(batches, got):
+        n = x[0].shape[0]
+        with torch.no_grad():
+            want = serving(*x)
+            raw = serving.model(x)
+        diff = float((det - want).abs().max())
+        check(det.shape == (n, SERVE_TOP_K, 6) and torch.equal(det[..., 0], want[..., 0])
+              and diff <= ARTIFACT_TOL * float(want.abs().max()),
+              f"artifact = in-process folded path at batch {n}: classes equal, max |diff| {diff:.3g}")
+        ref = plain_nms(raw)
+        check(torch.equal(det[..., 0], ref[..., 0])
+              and float((det - ref).abs().max()) <= ARTIFACT_TOL * float(ref.abs().max()),
+              f"artifact at batch {n} = the plain NMS's decode of the in-process raw predictions")
+        scores, boxes = select_candidates(raw, n_classes=20, candidate_selector="shared")
+        nb, ns = boxes.reshape(n * 20, -1, 4), scores.reshape(n * 20, -1)
+        keep = batched_nms.batched_nms_mask(nb, ns)
+        mask_err += int((keep != batched_nms.batched_nms_mask_reference(nb, ns)).sum())
+    check(mask_err == 0, "kernel mask = plain mask on the artifact's candidates at batches 1, 8, 32")
+    # `evaluate --exported`'s inference function (the JPEG half of the
+    # command needs libjpeg, which the card's machine lacks) in the evaluator on
+    # phase 9d's kind of batches, against the in-process serving module.
+    infer_exported, _ = cli._exported_infer(out_dir)
+    ev_batches = eval_batches(np.random.default_rng(6), infer_exported)
+    batched_nms.LAUNCHES = 0
+    ev_art = DetectionEvaluator(infer_exported, ev_batches, n_classes=20)
+    map_art, _, _ = ev_art()
+    torch.cuda.synchronize()
+    eval_launches = batched_nms.LAUNCHES
+
+    def infer_in_process(inputs):
+        with torch.no_grad():
+            return serving(*inputs)
+
+    ev_in = DetectionEvaluator(infer_in_process, ev_batches, n_classes=20)
+    map_in, _, _ = ev_in()
+    n_preds = sum(map(len, ev_art.prediction_results))
+    check(ev_art.prediction_results == ev_in.prediction_results and map_art == map_in
+          and n_preds > 0 and eval_launches == len(ev_batches),
+          f"evaluate --exported's inference: the in-process lists ({n_preds} predictions) and "
+          f"mAP ({map_art!r}); {eval_launches} B1 launches for {len(ev_batches)} batches")
+    with torch.no_grad():
+        t32 = rounds({"artifact": lambda: fn(y32, c32), "in-process": lambda: serving(y32, c32)},
+                     lambda f: timed(f, 10), 2)
+        t1 = rounds({"artifact": lambda: fn(*request), "in-process": lambda: serving(*request)},
+                    lambda f: request_ms(f), 2)
+    print(f"    folded f32 forward + shared decode, batch 32, 2 rotating rounds (CUDA events): "
+          f"artifact {t32['artifact']}, in-process {t32['in-process']} ms  [{card}]")
+    print(f"    batch-1 latency, folded f32 forward + shared decode (host clock to synchronize, "
+          f"mean of 20 a window, median of 5), 2 rounds: artifact {t1['artifact']}, "
+          f"in-process {t1['in-process']} ms  [{card}]")
+
+    # 3. int8: calibrate on 4 seeded batches, the accumulators card vs CPU, the
+    # raw output against float, the artifact's size, the forward's time.
+    rng = np.random.default_rng(9)
+    calib = [(torch.from_numpy(rng.normal(0, 100, (8, 38, 38, 64)).astype(np.float32)).to(dev),
+              torch.from_numpy(rng.normal(0, 30, (8, 19, 19, 128)).astype(np.float32)).to(dev))
+             for _ in range(4)]
+    qmodel, info = quantize_for_serving(model_f32, calib)
+    print(f"    int8: {len(info['quantized'])} convs quantized, kept float {info['kept_float']}, "
+          f"{info['n_calibration_batches']} calibration batches of 8")
+    inputs, seen = {}, set()
+
+    def record(path):
+        def hook(mod, args):
+            inputs[path] = args[0].detach()
+        return hook
+
+    qconvs = {p: m for p, m in qmodel.named_modules() if isinstance(m, QuantizedConv)}
+    hooks = [m.register_forward_pre_hook(record(p)) for p, m in qconvs.items()]
+    with torch.no_grad():
+        qmodel(request)
+    for h in hooks:
+        h.remove()
+    n_shapes = 0
+    for path, mod in qconvs.items():
+        x = inputs[path]
+        key = (tuple(x.shape), mod.kernel, mod.stride, tuple(mod.weight_q.shape))
+        if key in seen:
+            continue
+        seen.add(key)
+        n_shapes += 1
+        acc = mod.accumulate(x)
+        ref = copy.deepcopy(mod).cpu().accumulate(x.cpu())
+        check(acc.dtype == torch.int32 and torch.equal(acc.cpu(), ref),
+              f"int8 accumulators card = CPU exactly: {path} ({mod.kernel}x{mod.kernel}/"
+              f"{mod.stride}, map {x.shape[1]}x{x.shape[2]}, {x.shape[3]}->{mod.features})")
+    with torch.no_grad():
+        q_raw = qmodel(x2)
+    for block, cols in (("conf", slice(0, 21)), ("loc", slice(21, 25))):
+        rel = float(((q_raw[..., cols] - b[..., cols]) ** 2).mean().sqrt()
+                    / (b[..., cols] ** 2).mean().sqrt())
+        print(f"    int8 vs folded f32 raw output at batch 2, {block}: relative RMS {rel:.4g}")
+    check(bool(torch.isfinite(q_raw).all()), "int8 raw output finite")
+    q_dir = tempfile.mkdtemp(prefix="serve_int8_")
+    q_serving = build_serving_fn(qmodel, decode_fn=serving.decode_fn, fold_bn=False)
+    q_manifest = export_serving_artifact(q_serving, (y32[:2], c32[:2]), q_dir, symbolic_batch=True)
+    q_fn, _ = load_serving_artifact(q_dir)
+    with torch.no_grad():
+        q_det, q_want = q_fn(y32, c32), q_serving(y32, c32)
+    check(torch.equal(q_det[..., 0], q_want[..., 0])
+          and float((q_det - q_want).abs().max()) <= ARTIFACT_TOL * float(q_want.abs().max()),
+          "int8 artifact = in-process int8 path at batch 32")
+    print(f"    artifact bytes: float {manifest['bytes']}, int8 {q_manifest['bytes']} "
+          f"({q_manifest['bytes'] / manifest['bytes']:.3f} of float)")
+    with torch.no_grad():
+        tq = rounds({"int8": lambda: qmodel((y32, c32)), "bf16": lambda: folded["bf16"]((y32, c32)),
+                     "f32": lambda: folded["f32"]((y32, c32))}, lambda f: timed(f, 10), 3)
+    print(f"    folded forward at batch 32, 3 rotating rounds (CUDA events): int8 {tq['int8']}, "
+          f"bf16 {tq['bf16']}, f32 {tq['f32']} ms  [{card}]")
+    ql, qd = forward_launches(lambda: qmodel((y32, c32)))
+    print(f"    int8 forward launches (profiler): {ql:.0f}, kernels' device time {qd:.4f} ms  [{card}]")
+    for d in (work, q_dir):
+        shutil.rmtree(d)
+    print(f"    phase 9h took {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": serve_launches, "evaluate_launches": eval_launches}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2231,6 +2508,7 @@ def main() -> int:
     run_train_detect(card)
     cls_wgrad, cls_flip = run_classification(dev, card)
     fam = run_other_families(dev, card)
+    serve = run_serving(dev, card, **served)
 
     print(f"[10] done in {time.perf_counter() - t_start:.1f} s")
     source = "jpeg_detection_resnet_ssd_torch/ops/csrc/{}.cu"
@@ -2238,7 +2516,7 @@ def main() -> int:
         {"name": "batched_nms_mask", "route": "cuda", "source": source.format("batched_nms"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_nms.py:114",
          "max_abs_err": nms_err, "library_ms": None, **nms,
-         "vgg": {"launches": fam["nms_launches"]}},
+         "vgg": {"launches": fam["nms_launches"]}, "serve": serve},
         {"name": "bipartite_match", "route": "cuda", "source": source.format("bipartite_match"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_match.py:174",
          "max_abs_err": match_err, "library_ms": None, **train["match"],

@@ -84,9 +84,11 @@ def decode_raw_predictions(
 
 def _nms_fn(nms_impl: str, device: torch.device):
     """The greedy-NMS mask function `nms_impl` names: 'auto' is
-    `batched_nms_mask` (the CUDA kernel on a CUDA tensor, the plain version
-    on a CPU tensor), 'kernel' the same but only for a CUDA tensor, and
-    'reference' the plain version on either device."""
+    `batched_nms_mask`, the custom operator (the CUDA kernel on a CUDA
+    tensor, the plain version on a CPU tensor; one node in a `torch.export`
+    graph, which dispatches by device when it runs), 'kernel' the same but
+    only for a CUDA tensor, and 'reference' the plain version on either
+    device (traced op by op)."""
     if nms_impl not in NMS_IMPLS:
         raise ValueError(f"nms_impl must be one of {NMS_IMPLS}, got {nms_impl!r}")
     if nms_impl == "kernel" and device.type != "cuda":

@@ -1,5 +1,5 @@
 """Command line of the PyTorch port: `train-classify`, `train-detect`,
-`evaluate`, `evaluate-classify`, `compute-map`, `infer`.
+`evaluate`, `evaluate-classify`, `compute-map`, `infer`, `export`.
 
     python -m jpeg_detection_resnet_ssd_torch.cli train-classify --train-dir IMAGENET \\
         [--archi ARCHI|rgb] [--device-augment --pack-cache STEM] [--pallas-wgrad]
@@ -9,11 +9,13 @@
         [--vgg | --archi ARCHI] [--device-augment --pack-cache STEM] \\
         [--pretrained-weights KERAS.h5]
     python -m jpeg_detection_resnet_ssd_torch.cli evaluate --run-dir RUN \\
-        --voc-root VOC [--image-set test.txt] [--out-dir PRED]
+        --voc-root VOC [--image-set test.txt] [--out-dir PRED] [--exported ART]
     python -m jpeg_detection_resnet_ssd_torch.cli compute-map --pred-dir PRED \\
         --voc-root VOC
     python -m jpeg_detection_resnet_ssd_torch.cli infer --image IMG.jpg \\
-        [--weights KERAS.h5] [--output detections.png]
+        [--weights KERAS.h5 | --exported ART] [--output detections.png]
+    python -m jpeg_detection_resnet_ssd_torch.cli export (--run-dir RUN | --model NAME \\
+        [--weights KERAS.h5]) --output ART [--symbolic-batch] [--quantize int8]
 
 The flags are those of the JAX package's `cli/main.py`, plus `--device`
 (default `cuda`; every subcommand but `compute-map`, which is NumPy only,
@@ -21,10 +23,13 @@ raises without a card unless given `--device cpu`).  `train-detect` trains
 every SSD300 of the JAX CLI: `ssd_custom` (default), the identical-family
 archis (`--archi deconv|up_sampling|cb5_only|y_cb4_cbcr_cb5`) and the DCT
 VGG SSD300 (`--vgg`); `infer --model` and `evaluate` take every SSD300 of
-the registry.  What is not ported raises `NotImplementedError` naming its
-ROADMAP item: `--n-model-shards > 1` (A13), `--pretrained-weights` short
-names and URLs and `--exported` serving artifacts (A14).  The JAX package's
-`export` and `bench` subcommands are not offered yet (A14).
+the registry.  `export` writes a `torch.export` serving artifact (`serve/`:
+BatchNorm folded, optionally int8, the decode's NMS as the port's custom
+operator) that `evaluate --exported` and `infer --exported` run; it takes
+`--device` where the JAX command took `--platforms`.  What is not ported
+raises `NotImplementedError` naming its ROADMAP item: `--n-model-shards >
+1` (A13) and `--pretrained-weights` short names and URLs (A14c).  The JAX
+package's `bench` subcommand is not offered yet (A14c).
 """
 
 from __future__ import annotations
@@ -104,7 +109,7 @@ def _maybe_import_pretrained(config):
     if not os.path.isfile(spec):
         raise NotImplementedError(
             f"--pretrained-weights {spec!r} is not a local file; short names and URLs "
-            "need compat/fetch.py, not ported to PyTorch yet (ROADMAP A14)"
+            "need compat/fetch.py, not ported to PyTorch yet (ROADMAP A14c)"
         )
     import torch
 
@@ -315,17 +320,41 @@ def cmd_train_detect(args):
     print(json.dumps(history[-1] if history else {}))
 
 
-def _exported_not_ported(args):
-    if args.exported:
-        raise NotImplementedError(
-            f"{args.command} --exported: serving artifacts are not ported to PyTorch yet (ROADMAP A14)"
-        )
+def _exported_infer(path):
+    """(infer, manifest) of a serving artifact: `infer(inputs)` takes a
+    batch of NumPy arrays or tensors (one, or a tuple of planes) and returns
+    the artifact's output.  A fixed-batch artifact bakes its batch into its
+    signature; a smaller batch (an evaluation's last) is zero-padded up to it
+    and the rows trimmed back."""
+    import torch
+
+    from jpeg_detection_resnet_ssd_torch.serve import load_serving_artifact
+
+    fn, manifest = load_serving_artifact(path)
+    device = torch.device(manifest["device"])
+    fixed_b = None if manifest["symbolic_batch"] else manifest["inputs"][0]["shape"][0]
+
+    def infer(inputs):
+        inputs = inputs if isinstance(inputs, (tuple, list)) else (inputs,)
+        inputs = tuple(torch.as_tensor(x, device=device) for x in inputs)
+        n = int(inputs[0].shape[0])
+        if fixed_b is None or n == fixed_b:
+            return fn(*inputs)
+        if n > fixed_b:
+            raise ValueError(
+                f"batch {n} exceeds the artifact's baked batch {fixed_b}; re-export "
+                f"with --symbolic-batch or a larger --batch-size"
+            )
+        padded = tuple(torch.cat([x, x.new_zeros((fixed_b - n, *x.shape[1:]))]) for x in inputs)
+        return fn(*padded)[:n]
+
+    return infer, manifest
 
 
 def cmd_evaluate(args):
     """mAP of a training run's latest checkpoint on a VOC image set, with the
-    reference's literal decode (`candidate_selector="exact"`)."""
-    _exported_not_ported(args)
+    reference's literal decode (`candidate_selector="exact"`), or of a
+    serving artifact (`--exported`) on the run's input contract."""
     import torch
 
     from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec
@@ -340,18 +369,24 @@ def cmd_evaluate(args):
     from jpeg_detection_resnet_ssd_torch.train.loop import build_trainer
 
     config = ExperimentConfig.load(os.path.join(args.run_dir, "saved_config.json"))
-    trainer, module, _ = build_trainer(config, device=args.device)
-    CheckpointManager(os.path.join(args.run_dir, "checkpoints")).restore(trainer)
-    module.eval()
-    # mAP protocol: literal reference semantics (full per-class top-k), not
-    # the faster shared candidate pool used for serving.
-    decode = make_inference_fn(
-        n_classes=20, spec=AnchorSpec(), candidate_selector="exact", device=trainer.device
-    )
+    if args.exported:
+        # mAP straight from the serving artifact: the exported program is the
+        # in-process path.  Export with --candidate-selector exact for the
+        # literal reference protocol.
+        infer, _ = _exported_infer(args.exported)
+    else:
+        trainer, module, _ = build_trainer(config, device=args.device)
+        CheckpointManager(os.path.join(args.run_dir, "checkpoints")).restore(trainer)
+        module.eval()
+        # mAP protocol: literal reference semantics (full per-class top-k),
+        # not the faster shared candidate pool used for serving.
+        decode = make_inference_fn(
+            n_classes=20, spec=AnchorSpec(), candidate_selector="exact", device=trainer.device
+        )
 
-    def infer(inputs):
-        with torch.no_grad():
-            return decode(module(inputs))
+        def infer(inputs):
+            with torch.no_grad():
+                return decode(module(inputs))
 
     ds = DetectionDataset.from_voc(
         os.path.join(args.voc_root, "JPEGImages"),
@@ -448,8 +483,9 @@ def cmd_infer(args):
     """Single-image detection: JPEG -> 300x300 image -> the model's input
     contract (DCT planes; RGB for `ssd300_vgg`, the DCT image for
     `ssd300_vgg_dct_image`, Cb and Cr apart for `ssd300_deconv`) -> model ->
-    exact decode -> boxes drawn on the original image, saved as a PNG."""
-    _exported_not_ported(args)
+    exact decode -> boxes drawn on the original image, saved as a PNG.
+    With `--exported` the serving artifact takes the place of model and
+    decode (its weights and decode settings are its own)."""
     import numpy as np
     import torch
     from PIL import Image, ImageDraw
@@ -460,21 +496,27 @@ def cmd_infer(args):
     from jpeg_detection_resnet_ssd_torch.data.pipeline import _pack_inputs
     from jpeg_detection_resnet_ssd_torch.models import MODEL_REGISTRY, build_model, make_inference_fn
 
-    module, _ = build_model(args.model, n_classes=20, device=args.device)
     with Image.open(args.image) as im:
         orig = np.asarray(im.convert("RGB"))
     img300, _, inverter = resize(
         to_3_channels(orig), np.zeros((0, 5), np.float32), 300, 300,
         return_inverter=True,
     )
-    inputs = _pack_inputs([img300], MODEL_REGISTRY[args.model].input_format)
-    if args.weights:
-        from jpeg_detection_resnet_ssd_torch.compat import import_weights_by_name
+    if args.exported:
+        infer, manifest = _exported_infer(args.exported)
+        model = manifest.get("model", args.model)
+        inputs = _pack_inputs([img300], MODEL_REGISTRY[model].input_format)
+        out = infer(inputs).cpu().numpy()[0]
+    else:
+        module, _ = build_model(args.model, n_classes=20, device=args.device)
+        inputs = _pack_inputs([img300], MODEL_REGISTRY[args.model].input_format)
+        if args.weights:
+            from jpeg_detection_resnet_ssd_torch.compat import import_weights_by_name
 
-        import_weights_by_name(module, args.weights, verbose=True)
-    decode = make_inference_fn(n_classes=20, spec=AnchorSpec(), device=args.device)
-    with torch.no_grad():
-        out = decode(module(inputs)).cpu().numpy()[0]
+            import_weights_by_name(module, args.weights, verbose=True)
+        decode = make_inference_fn(n_classes=20, spec=AnchorSpec(), device=args.device)
+        with torch.no_grad():
+            out = decode(module(inputs)).cpu().numpy()[0]
     rows = out[out[:, 1] >= args.confidence]
     rows = rows[np.isfinite(rows).all(axis=1)]
     rows = inverter(rows) if len(rows) else rows
@@ -495,6 +537,107 @@ def cmd_infer(args):
         )
     im.save(args.output)
     print(f"{len(rows)} detections -> {args.output}")
+
+
+def cmd_export(args):
+    """Export a serving artifact: a `torch.export` program with its weights
+    (`model.pt2`) and `manifest.json` (see `serve/export.py`).
+
+    Source is either a training run (`--run-dir`, restores the checkpoint
+    like `evaluate`) or a fresh model (`--model`, optionally `--weights` H5).
+    Detection models export forward + decode to (B, top_k, 6) detections;
+    classification models export logits.  `--device` is where the artifact
+    runs (default cuda; its decode's NMS is then the CUDA kernel).
+    """
+    import numpy as np
+
+    from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec
+    from jpeg_detection_resnet_ssd_torch.models import MODEL_REGISTRY, build_model, make_inference_fn
+    from jpeg_detection_resnet_ssd_torch.serve import build_serving_fn, export_serving_artifact
+
+    if args.run_dir:
+        from jpeg_detection_resnet_ssd_torch.train.checkpoints import CheckpointManager
+        from jpeg_detection_resnet_ssd_torch.train.config import ExperimentConfig
+        from jpeg_detection_resnet_ssd_torch.train.loop import build_trainer
+
+        config = ExperimentConfig.load(os.path.join(args.run_dir, "saved_config.json"))
+        trainer, module, example_inputs = build_trainer(config, device=args.device)
+        CheckpointManager(os.path.join(args.run_dir, "checkpoints")).restore(trainer)
+        model_name, task = config.model, config.task
+    else:
+        # Detection factories take n_classes; classification factories do
+        # not (they default to 1000 ImageNet classes).
+        kw = {"n_classes": 20} if args.model.startswith("ssd300") else {}
+        module, example_inputs = build_model(args.model, device=args.device, **kw)
+        if args.weights:
+            from jpeg_detection_resnet_ssd_torch.compat import import_weights_by_name
+
+            import_weights_by_name(module, args.weights)
+        model_name = args.model
+        task = "detection" if model_name.startswith("ssd300") else "classification"
+
+    decode = None
+    if task == "detection":
+        decode = make_inference_fn(
+            n_classes=20, spec=AnchorSpec(),
+            confidence_thresh=args.confidence, top_k=args.top_k,
+            nms_impl=args.nms_impl, candidate_selector=args.candidate_selector,
+            device=args.device,
+        )
+    if args.quantize == "int8":
+        from jpeg_detection_resnet_ssd_torch.serve import quantize_for_serving
+
+        if args.calib_voc_root:
+            from jpeg_detection_resnet_ssd_torch.data import DetectionDataset, DetectionPipeline
+
+            ds = DetectionDataset.from_voc(
+                os.path.join(args.calib_voc_root, "JPEGImages"),
+                os.path.join(args.calib_voc_root, "ImageSets", "Main", args.calib_image_set),
+                os.path.join(args.calib_voc_root, "Annotations"),
+            )
+            pipe = DetectionPipeline(
+                ds, args.batch_size, train=False, encoder=None,
+                input_format=MODEL_REGISTRY[model_name].input_format, num_workers=2,
+            )
+            calib = []
+            for batch in pipe:
+                calib.append(batch["inputs"])
+                if len(calib) >= args.calib_batches:
+                    break
+        else:
+            print("warning: int8 calibration on synthetic example inputs; "
+                  "pass --calib-voc-root for real activation ranges", file=sys.stderr)
+            calib = [example_inputs()]
+        qmodel, qinfo = quantize_for_serving(module, calib, fold_bn=not args.no_fold_bn)
+        print(json.dumps({"quantized_convs": len(qinfo["quantized"]),
+                          "kept_float": qinfo["kept_float"]}), file=sys.stderr)
+        serving_fn = build_serving_fn(qmodel, decode, fold_bn=False)
+    else:
+        serving_fn = build_serving_fn(module, decode, fold_bn=not args.no_fold_bn)
+
+    example = example_inputs()
+    example = example if isinstance(example, tuple) else (example,)
+    inputs = tuple(np.zeros((args.batch_size, *x.shape[1:]), x.dtype) for x in example)
+    manifest = export_serving_artifact(
+        serving_fn, inputs, args.output, device=args.device,
+        symbolic_batch=args.symbolic_batch,
+        manifest_extra={
+            "model": model_name,
+            "task": task,
+            "fold_bn": not args.no_fold_bn,
+            "quantize": args.quantize,
+            "decode": None if decode is None else {
+                "confidence_thresh": args.confidence,
+                "top_k": args.top_k,
+                "nms_impl": args.nms_impl,
+                "candidate_selector": args.candidate_selector,
+            },
+        },
+    )
+    print(json.dumps({
+        "output": args.output, "bytes": manifest["bytes"],
+        "device": manifest["device"], "inputs": manifest["inputs"],
+    }))
 
 
 def build_parser():
@@ -559,7 +702,8 @@ def build_parser():
                          "under 'include'); default: the official "
                          "consistent +1px convention")
     ev.add_argument("--exported", default=None,
-                    help="serving-artifact dir (not ported: ROADMAP A14)")
+                    help="serving-artifact dir from `export`: run it in place of "
+                         "the checkpoint (the run dir gives the input contract)")
     ev.add_argument("--device", default="cuda",
                     help="where the model runs (default cuda; cpu for tests)")
     ev.set_defaults(fn=cmd_evaluate)
@@ -588,12 +732,51 @@ def build_parser():
     inf.add_argument("--model", default="ssd300_ssd_custom")
     inf.add_argument("--weights", default=None, help="Keras H5 loaded by layer name")
     inf.add_argument("--exported", default=None,
-                     help="serving-artifact dir (not ported: ROADMAP A14)")
+                     help="serving-artifact dir from `export` (no model build; "
+                          "weights come from the artifact)")
     inf.add_argument("--confidence", type=float, default=0.2)
     inf.add_argument("--output", default="detections.png")
     inf.add_argument("--device", default="cuda",
                      help="where the model runs (default cuda; cpu for tests)")
     inf.set_defaults(fn=cmd_infer)
+
+    ex = sub.add_parser("export")
+    src = ex.add_mutually_exclusive_group(required=True)
+    src.add_argument("--run-dir", default=None,
+                     help="training run to export (restores the checkpoint)")
+    src.add_argument("--model", default=None,
+                     help="registry model name (seeded init; combine with "
+                          "--weights for a Keras H5)")
+    ex.add_argument("--weights", default=None)
+    ex.add_argument("--output", required=True, help="artifact directory")
+    ex.add_argument("--batch-size", type=int, default=32)
+    ex.add_argument("--symbolic-batch", action="store_true",
+                    help="export with a symbolic batch dimension (one "
+                         "artifact serves any batch size)")
+    ex.add_argument("--no-fold-bn", action="store_true",
+                    help="skip BatchNorm folding (kept for A/B checks)")
+    ex.add_argument("--quantize", default=None, choices=["int8"],
+                    help="post-training int8 trunk quantization "
+                         "(serve/quantize.py): ~4x smaller artifact; input "
+                         "stems + heads stay float")
+    ex.add_argument("--calib-voc-root", default=None,
+                    help="VOC root for activation-range calibration "
+                         "(recommended with --quantize; decodes JPEGs, so "
+                         "needs libjpeg)")
+    ex.add_argument("--calib-image-set", default="trainval.txt")
+    ex.add_argument("--calib-batches", type=int, default=8)
+    ex.add_argument("--confidence", type=float, default=0.01)
+    ex.add_argument("--top-k", type=int, default=200)
+    ex.add_argument("--nms-impl", default="auto", choices=["auto", "kernel", "reference"],
+                    help="the decode's NMS: auto (the custom operator: the CUDA "
+                         "kernel on the card, the plain version on the CPU), "
+                         "kernel (the card only) or reference (plain, traced "
+                         "into the graph)")
+    ex.add_argument("--candidate-selector", default="exact",
+                    choices=["exact", "shared"])
+    ex.add_argument("--device", default="cuda",
+                    help="where the artifact runs (default cuda; cpu for tests)")
+    ex.set_defaults(fn=cmd_export)
     return p
 
 

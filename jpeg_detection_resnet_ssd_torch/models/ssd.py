@@ -107,12 +107,18 @@ class _SSDHead(nn.Module):
 
     def _anchor_tensor(self, sizes, dtype, device) -> torch.Tensor:
         key = (tuple(sizes), dtype, device)
-        if key not in self._anchors:
-            anchors = build_anchors(self.spec, sizes, coords="centroids")
+        anchors = self._anchors.get(key)
+        if anchors is None:
             # Held in the compute dtype and widened back to float32, as the
             # JAX head does (bf16 compute rounds the anchor columns).
-            self._anchors[key] = torch.as_tensor(anchors, device=device).to(dtype).float()
-        return self._anchors[key]
+            anchors = torch.as_tensor(
+                build_anchors(self.spec, sizes, coords="centroids"), device=device
+            ).to(dtype).float()
+            # A trace (torch.export) owns its own copy as a constant: a
+            # tensor attribute assigned while it traces cannot be exported.
+            if not torch.compiler.is_compiling():
+                self._anchors[key] = anchors
+        return anchors
 
     def forward(self, sources: Sequence[torch.Tensor]) -> torch.Tensor:
         n_total = self.n_classes + 1

@@ -14,6 +14,15 @@ scan over those words, one warp a problem.  K is bounded by the scan's shared
 memory (two blocks of 64 mask rows in flight, 1,040 bytes for each 64
 candidates: K <= 14,272) and the workspace by device memory
 (N * K * ceil(K / 64) * 8 bytes, 14.3 MB at N = 640, K = 400).
+
+`batched_nms_mask` is the custom operator
+`torch.ops.jpeg_detection_resnet_ssd_torch.batched_nms_mask`: its CUDA
+implementation launches the kernel, its CPU implementation is the plain
+version, and a fake implementation gives traces the (N, K) bool shape.  So
+`torch.export` keeps a decode's NMS as one node, and a loaded artifact
+reaches the kernel on the card.  Registering it builds nothing: the kernel
+is compiled at its first launch (`_build.load`).  A process that loads an
+exported artifact must import this module first.
 """
 
 from __future__ import annotations
@@ -89,6 +98,9 @@ def _check(boxes: torch.Tensor, scores: torch.Tensor) -> tuple[int, int]:
     return n, k
 
 
+OP_NAME = "jpeg_detection_resnet_ssd_torch::batched_nms_mask"
+
+
 def batched_nms_mask(
     boxes: torch.Tensor,
     scores: torch.Tensor,
@@ -100,12 +112,22 @@ def batched_nms_mask(
     On a CUDA tensor this launches the hand-written kernels (the pair
     bitmask, then the scan) on the current stream; on a CPU tensor it runs
     `batched_nms_mask_reference`.  Inputs must be float32 and contiguous.
+    Both go through the custom operator `OP_NAME`, one node in a trace.
     """
+    return _nms_op(boxes, scores, float(iou_threshold), float(border_delta))
+
+
+@torch.library.custom_op(OP_NAME, mutates_args=(), device_types="cpu")
+def _nms_op(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+            border_delta: float) -> torch.Tensor:
+    _check(boxes, scores)
+    return batched_nms_mask_reference(boxes, scores, iou_threshold, border_delta)
+
+
+@_nms_op.register_kernel("cuda")
+def _nms_cuda(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+              border_delta: float) -> torch.Tensor:
     n, k = _check(boxes, scores)
-    if boxes.device.type == "cpu":
-        return batched_nms_mask_reference(boxes, scores, iou_threshold, border_delta)
-    if boxes.device.type != "cuda":
-        raise ValueError(f"batched_nms_mask runs on cuda or cpu, got {boxes.device}")
     if not (boxes.is_contiguous() and scores.is_contiguous()):
         raise ValueError("batched_nms_mask needs contiguous boxes and scores")
     lib = _library()
@@ -119,13 +141,20 @@ def batched_nms_mask(
         stream = torch.cuda.current_stream(boxes.device).cuda_stream
         err = lib.batched_nms_mask(
             boxes.data_ptr(), scores.data_ptr(), keep.data_ptr(), words.data_ptr(),
-            n, k, float(iou_threshold), float(border_delta), stream,
+            n, k, iou_threshold, border_delta, stream,
         )
     if err != 0:
         raise RuntimeError(f"batched_nms_mask kernel launch failed: CUDA error {err}")
     global LAUNCHES
     LAUNCHES += 1
     return keep
+
+
+@_nms_op.register_fake
+def _nms_fake(boxes: torch.Tensor, scores: torch.Tensor, iou_threshold: float,
+              border_delta: float) -> torch.Tensor:
+    _check(boxes, scores)
+    return scores.new_empty(scores.shape, dtype=torch.bool)
 
 
 def _library() -> ctypes.CDLL:

@@ -22,7 +22,17 @@ from jpeg_detection_resnet_ssd_torch.cli import main as port_cli
 from jpeg_detection_resnet_ssd_torch.data.packed import PackedDctDataset
 from jpeg_detection_resnet_ssd_torch.train import ExperimentConfig
 
-torch.set_num_threads(2)
+
+@pytest.fixture(autouse=True, scope="module")
+def two_threads():
+    """Two intra-op threads for this module's full-size models, and the
+    process's count back afterwards: set at import, the count would hold
+    for every module that pytest collects after this one."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
+
 
 MODEL = "resnet50_dct_late_concat_rfa_thinner"
 

@@ -1,6 +1,7 @@
-"""The port's command line end to end on the CPU: `evaluate`, `compute-map`
-and `infer` of `python -m jpeg_detection_resnet_ssd_torch.cli`, on a seeded
-4-image VOC tree, at batch 2.
+"""The port's command line end to end on the CPU: `evaluate`, `compute-map`,
+`infer` and `export` (then `evaluate --exported` and `infer --exported`) of
+`python -m jpeg_detection_resnet_ssd_torch.cli`, on a seeded 4-image VOC
+tree, at batch 2.
 
 The run directory is the port's own: a `saved_config.json` and one
 checkpoint written by the port's `CheckpointManager` (seeded weights, with
@@ -13,6 +14,7 @@ import contextlib
 import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 from pathlib import Path
@@ -99,15 +101,23 @@ def test_compute_map_prints_what_jax_prints(run, extra, capsys):
     assert json.loads(got)["mAP"] >= 0.0
 
 
-def test_infer_writes_a_png(run):
+@pytest.fixture(scope="module")
+def weights(run):
+    """A Keras H5 of seeded flax variables (moderate BatchNorm statistics, so
+    the boxes stay finite) and `infer --weights`' output with it."""
     module, example = jax_build_model("ssd300_ssd_custom", n_classes=20)
     variables = random_flax_variables(module, tuple(a[:1] for a in example()), train=False)
-    weights = run["tmp"] / "weights.h5"
-    export_keras_h5(variables, str(weights))
-    image = run["voc"] / "JPEGImages" / "010002.jpg"
+    h5 = run["tmp"] / "weights.h5"
+    export_keras_h5(variables, str(h5))
     png = run["tmp"] / "det.png"
-    out = run_cli("infer", "--image", image, "--weights", weights, "--output", png,
-                  "--confidence", 0.2, "--device", "cpu")
+    out = run_cli("infer", "--image", run["voc"] / "JPEGImages" / "010002.jpg", "--weights", h5,
+                  "--output", png, "--confidence", 0.2, "--device", "cpu")
+    return dict(h5=h5, png=png, infer=out)
+
+
+def test_infer_writes_a_png(run, weights):
+    image = run["voc"] / "JPEGImages" / "010002.jpg"
+    out, png = weights["infer"], weights["png"]
     assert "h5 import: 161 loaded, 0 skipped, 0 mismatched" in out
     assert out.strip().splitlines()[-1].endswith(f"detections -> {png}")
     from PIL import Image
@@ -116,23 +126,90 @@ def test_infer_writes_a_png(run):
         assert im.format == "PNG" and im.size == src.size
 
 
+@pytest.fixture(scope="module")
+def artifact(run, weights):
+    """`export --model ssd300_ssd_custom --weights H5 --symbolic-batch` on the
+    CPU: the folded forward and the decode as one `torch.export` program."""
+    out_dir = run["tmp"] / "artifact"
+    out = run_cli("export", "--model", "ssd300_ssd_custom", "--weights", weights["h5"],
+                  "--output", out_dir, "--symbolic-batch", "--batch-size", 2,
+                  "--confidence", 0.01, "--top-k", 200, "--device", "cpu")
+    yield out_dir, json.loads(out.strip().splitlines()[-1])
+    shutil.rmtree(out_dir)  # ~210 MB of float32 weights
+
+
+def test_export_writes_the_artifact_and_its_manifest(artifact):
+    out_dir, printed = artifact
+    manifest = json.loads((out_dir / "manifest.json").read_text())
+    assert sorted(os.listdir(out_dir)) == ["manifest.json", "model.pt2"]
+    assert printed["bytes"] == manifest["bytes"] == (out_dir / "model.pt2").stat().st_size
+    assert manifest["format"] == "torch.export" and manifest["device"] == "cpu"
+    assert manifest["symbolic_batch"] and manifest["model"] == "ssd300_ssd_custom"
+    assert manifest["inputs"] == [{"shape": ["b", 38, 38, 64], "dtype": "float32"},
+                                  {"shape": ["b", 19, 19, 128], "dtype": "float32"}]
+    assert manifest["requires"]["import"] == "jpeg_detection_resnet_ssd_torch.ops"
+    assert manifest["decode"]["nms_impl"] == "auto" and manifest["fold_bn"]
+
+
 @pytest.mark.parametrize("argv", [
     ["evaluate", "--run-dir", "r", "--voc-root", "v", "--exported", "a"],
     ["infer", "--image", "x.jpg", "--exported", "a"],
 ])
-def test_serving_artifacts_name_their_roadmap_item(argv):
-    with pytest.raises(NotImplementedError, match="A14"):
-        port_cli.main(argv)
+def test_serving_artifacts_name_their_roadmap_item(run, weights, artifact, argv):
+    """The serving artifacts of ROADMAP A14 (once refused naming it) run:
+    `evaluate --exported` prints an mAP and writes the VOC files; `infer
+    --exported` finds what `infer --weights` finds with the same weights
+    (folded BatchNorm moves scores by ~1e-6, far from the 0.2 cut)."""
+    out_dir, _ = artifact
+    if argv[0] == "evaluate":
+        pred = run["tmp"] / "pred_exported"
+        out = run_cli("evaluate", "--run-dir", run["run_dir"], "--voc-root", run["voc"],
+                      "--batch-size", 2, "--out-dir", pred, "--exported", out_dir, "--device", "cpu")
+        result = json.loads(out.strip().splitlines()[-1])
+        assert 0.0 <= result["mAP"] <= 1.0 and len(result["AP"]) == 20
+        assert len(os.listdir(pred)) == 20
+    else:
+        png = run["tmp"] / "det_exported.png"
+        out = run_cli("infer", "--image", run["voc"] / "JPEGImages" / "010002.jpg",
+                      "--exported", out_dir, "--output", png, "--confidence", 0.2, "--device", "cpu")
+        got = out.strip().splitlines()[-1]
+        want = weights["infer"].strip().splitlines()[-1]
+        assert got.split()[0] == want.split()[0] and int(got.split()[0]) > 0
+        assert got.endswith(f"detections -> {png}") and png.stat().st_size > 0
+
+
+def test_evaluate_exported_fixed_batch_equals_the_checkpoint(run):
+    """An artifact of the run's checkpoint at a fixed batch of 3 (the last
+    batch of the 4 images is padded up to it and trimmed back) gives the mAP
+    and the VOC files of the in-process evaluate, to the folded BatchNorm's
+    float32 rounding: scores within 1e-4, boxes within the files' 0.1-px
+    step (a coordinate near a rounding boundary may cross it)."""
+    out_dir = run["tmp"] / "artifact_b3"
+    run_cli("export", "--run-dir", run["run_dir"], "--output", out_dir, "--batch-size", 3,
+            "--candidate-selector", "exact", "--device", "cpu")
+    pred = run["tmp"] / "pred_b3"
+    out = run_cli("evaluate", "--run-dir", run["run_dir"], "--voc-root", run["voc"],
+                  "--batch-size", 3, "--out-dir", pred, "--exported", out_dir, "--device", "cpu")
+    assert json.loads(out.strip().splitlines()[-1])["mAP"] == pytest.approx(run["evaluate"]["mAP"], abs=1e-6)
+    for name in sorted(os.listdir(run["pred"])):
+        want = [line.split() for line in open(run["pred"] / name)]
+        got = [line.split() for line in open(pred / name)]
+        assert [r[0] for r in got] == [r[0] for r in want], name
+        np.testing.assert_allclose(np.array([r[1:2] for r in got], float),
+                                   np.array([r[1:2] for r in want], float), atol=1e-4)
+        np.testing.assert_allclose(np.array([r[2:] for r in got], float),
+                                   np.array([r[2:] for r in want], float), atol=0.1 + 1e-9)
+    shutil.rmtree(out_dir)
 
 
 @pytest.mark.parametrize("command", ["train-classify", "evaluate-classify", "export", "bench"])
 def test_unported_subcommands_are_not_offered(command, capsys):
-    """`export` and `bench` (A14) are refused as unknown; the classification
-    commands are offered and ask for their arguments."""
+    """`bench` (A14c) is refused as unknown; the classification commands and
+    `export` are offered and ask for their arguments."""
     with pytest.raises(SystemExit):
         port_cli.main([command])
     err = capsys.readouterr().err
-    if command in ("export", "bench"):
+    if command == "bench":
         assert "invalid choice" in err
     else:
         assert "invalid choice" not in err and "the following arguments are required" in err

@@ -414,3 +414,53 @@ def test_classification_step_launches_b4_and_b3(cuda, remat):
     torch.cuda.synchronize()
     assert (conv_grad.LAUNCHES, dct_flip.LAUNCHES) == (18, 2)
     assert np.isfinite(float(metrics["loss"]))
+
+
+def test_artifact_nms_runs_the_kernel_and_equals_the_plain_version(cuda, tmp_path):
+    """An exported decode loaded back: each call reaches B1 through the
+    custom operator (one launch), and its detections equal the plain NMS's."""
+    from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec
+    from jpeg_detection_resnet_ssd_torch.models import make_inference_fn
+    from jpeg_detection_resnet_ssd_torch.serve import (
+        build_serving_fn, export_serving_artifact, load_serving_artifact,
+    )
+
+    y = torch.from_numpy(raw_predictions(seed=10, batch=4)).to(cuda)
+    decode = make_inference_fn(n_classes=N_CLASSES, spec=AnchorSpec(), top_k=50, device=cuda)
+    serving = build_serving_fn(torch.nn.Identity(), decode_fn=decode, fold_bn=False)
+    export_serving_artifact(serving, y[:2], str(tmp_path), device=cuda, symbolic_batch=True)
+    fn, manifest = load_serving_artifact(str(tmp_path))
+    assert manifest["device"] == "cuda:0"
+    ref_decode = make_inference_fn(n_classes=N_CLASSES, spec=AnchorSpec(), top_k=50,
+                                   nms_impl="reference", device=cuda)
+    for b in (1, 4):
+        before = batched_nms.LAUNCHES
+        got = fn(y[:b])
+        torch.cuda.synchronize()
+        assert batched_nms.LAUNCHES == before + 1
+        assert torch.equal(got, ref_decode(y[:b])) and int((got[..., 1] > 0).sum()) > 0
+    with pytest.raises(ValueError, match="cuda:0.*cpu"):
+        fn(y[:1].cpu())
+
+
+@pytest.mark.parametrize("conv", ["3x3", "1x1/2", "fc6"])
+def test_int8_conv_accumulators_on_the_card_equal_the_cpu(cuda, conv):
+    """`torch._int_mm` accumulators of a quantized conv, card against CPU:
+    integer sums, so exactly equal (batch 1: M padded past 16 rows)."""
+    from jpeg_detection_resnet_ssd_torch.models.layers import Conv
+    from jpeg_detection_resnet_ssd_torch.models.ssd import _FC6CenterTap
+    from jpeg_detection_resnet_ssd_torch.serve.quantize import QuantizedConv, quantize_conv_weights
+
+    g = torch.Generator().manual_seed(0)
+    layer, hw, cin = {"3x3": (Conv(128, 128, 3, generator=g), 19, 128),
+                      "1x1/2": (Conv(256, 512, 1, 2, "VALID", generator=g), 38, 256),
+                      "fc6": (_FC6CenterTap(2048, 1024, 6, generator=g), 5, 2048)}[conv]
+    root = torch.nn.Module()
+    root.c = layer
+    (w_q, s_w), = quantize_conv_weights(root, ["c"], skip=()).values()
+    x = torch.from_numpy(np.random.default_rng(1).normal(0, 1, (1, hw, hw, cin)).astype(np.float32))
+    cpu = QuantizedConv(layer, w_q, s_w, 4.0 / 127)
+    gpu = QuantizedConv(layer.to(cuda), w_q.to(cuda), s_w.to(cuda), 4.0 / 127)
+    acc = gpu.accumulate(x.to(cuda))
+    assert acc.dtype == torch.int32 and acc.is_cuda
+    assert torch.equal(acc.cpu(), cpu.accumulate(x))

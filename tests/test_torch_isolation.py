@@ -42,8 +42,10 @@ def import_every_module_without(blocked):
     `blocked` cannot be imported; fails if one is needed or if anything of
     the JAX package is imported."""
     mods = [port.__name__, *port_modules()]
-    assert len(mods) >= 56
+    assert len(mods) >= 60
     assert {"jpeg_detection_resnet_ssd_torch.cli.main", "jpeg_detection_resnet_ssd_torch.dctjpeg",
+            "jpeg_detection_resnet_ssd_torch.serve.folding", "jpeg_detection_resnet_ssd_torch.serve.export",
+            "jpeg_detection_resnet_ssd_torch.serve.quantize",
             "jpeg_detection_resnet_ssd_torch.data.pipeline", "jpeg_detection_resnet_ssd_torch.data.packed",
             "jpeg_detection_resnet_ssd_torch.data.augment", "jpeg_detection_resnet_ssd_torch.models.resnet",
             "jpeg_detection_resnet_ssd_torch.models.zoo", "jpeg_detection_resnet_ssd_torch.eval.imagenet_eval",
@@ -88,6 +90,49 @@ def import_every_module_without(blocked):
 
 def test_every_module_imports_without_jax_or_flax():
     import_every_module_without(("jax", "jaxlib", "flax", "optax"))
+
+
+def test_artifact_loads_and_runs_without_jax_or_flax(tmp_path):
+    """A serving artifact whose graph holds the decode's NMS custom operator
+    loads and runs in a fresh interpreter where jax, jaxlib, flax and optax
+    cannot be imported (its manifest's `requires` names the port's `ops`,
+    which `load_serving_artifact` imports), and gives this process's result."""
+    import numpy as np
+
+    from jpeg_detection_resnet_ssd_torch.serve import build_serving_fn, export_serving_artifact
+
+    from torch_cases import raw_predictions
+
+    decode = make_inference_fn(n_classes=20, spec=AnchorSpec(), top_k=20, device="cpu")
+    serving = build_serving_fn(torch.nn.Identity(), decode_fn=decode, fold_bn=False)
+    raw = raw_predictions(seed=2, batch=2)
+    manifest = export_serving_artifact(serving, raw, str(tmp_path / "art"), device="cpu",
+                                       symbolic_batch=True)
+    assert manifest["requires"]["import"] == "jpeg_detection_resnet_ssd_torch.ops"
+    np.save(tmp_path / "raw.npy", raw)
+    code = (
+        "import sys\n"
+        "for name in ('jax', 'jaxlib', 'flax', 'optax'):\n"
+        "    sys.modules[name] = None\n"
+        "import numpy as np, torch\n"
+        "from jpeg_detection_resnet_ssd_torch.serve import load_serving_artifact\n"
+        f"fn, manifest = load_serving_artifact({str(tmp_path / 'art')!r})\n"
+        f"raw = torch.from_numpy(np.load({str(tmp_path / 'raw.npy')!r}))\n"
+        f"np.save({str(tmp_path / 'got.npy')!r}, fn(raw[:1]).numpy())\n"
+        "bad = [m for m in sys.modules if m.startswith('jpeg_detection_resnet_ssd_tpu')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(REPO))
+    proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, env=env,
+                          cwd=REPO, timeout=300)
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "ok"
+    with torch.no_grad():
+        want = serving(torch.from_numpy(raw[:1])).numpy()
+    got = np.load(tmp_path / "got.npy")
+    assert got.shape == (1, 20, 6) and (got[..., 1] > 0).sum() > 0
+    np.testing.assert_array_equal(got, want)
 
 
 def test_every_module_imports_without_pil_cv2_or_h5py():

@@ -26,7 +26,16 @@ from jpeg_detection_resnet_ssd_torch.train import CheckpointManager, ExperimentC
 from torch_cases import write_voc_tree
 from torch_parity import random_flax_variables
 
-torch.set_num_threads(2)
+
+@pytest.fixture(autouse=True, scope="module")
+def two_threads():
+    """Two intra-op threads for this module's full-size models, and the
+    process's count back afterwards: set at import, the count would hold
+    for every module that pytest collects after this one."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(before)
 
 
 def run(cli, argv):
