@@ -193,13 +193,29 @@ Phases (any failure exits non-zero):
      artifact (= in-process at batch 32) and its bytes against the float
      artifact's, and the int8 forward at batch 32 against the folded bf16
      and f32 forwards in 3 rotating rounds;
+ 9i. weight tooling, profiling, `bench` and data parallelism (ROADMAP
+     A14c, A13a): `cli.main(["bench", ...])` for `ssd300_ssd_custom` at
+     batch 32 (51,984,110 parameters) and the classifier at batch 64; two
+     worker processes (this script with `--dp-worker`) share the card over
+     gloo and take 2 float32 steps (TF32 off) of `ssd300_ssd_custom` at a
+     global batch of 32, 16 rows a rank, through B2, the v3 augment's B3
+     and B4, against one process on the global batch (loss 1e-4, parameters
+     1e-3 of the largest, the ranks bit-identical; launches read in each
+     rank: B2 1, B3 2, B4 24 a step); phase 9e's `train-detect` command in a
+     subprocess under `torchrun`'s environment for a world of 1 (NCCL) at
+     batch 32 bf16, 3 steps, then `--restart` for 6 more (launches read in
+     the subprocess, warm steps/s from the restart's second epoch, since each
+     run is a new process); `utils.profile_trace` around 2 steps of the
+     reference's trainer (a Chrome trace holding B4's kernel) and
+     `StepTimer`'s steps/s;
  10. the `kernels` JSON line (B3's and B4's entries with a `classification`
      part: the train-classify run's launches and the per-step times at the
      classification shapes; every entry with a `vgg` part: the launches of
      `train-detect --vgg`'s 3 steps (B1: of 9g's three decodes), and for B4
      the per-step times at ssd300_vgg_dct's 13 shapes and the wide maps';
-     B1's entry with a `serve` part: its launches inside 9h's artifact),
-     the card line, and the final JSON line.
+     B1's entry with a `serve` part: its launches inside 9h's artifact;
+     B2's, B3's and B4's with a `data_parallel` part: each rank's launches
+     in 9i's 2-rank step), the card line, and the final JSON line.
 
 Weights are the port's seeded init (torch.Generator seeded 0); for inference
 the BatchNorm running statistics are calibrated on the batch-32 request (one
@@ -2461,6 +2477,238 @@ def run_serving(dev, card, model_f32, model_bf16, raw_f32, request, planes):
     return {"launches": serve_launches, "evaluate_launches": eval_launches}
 
 
+DP_BATCH, DP_STEPS, DP_TIMEOUT_S = 32, 2, 300  # phase 9i's data-parallel step
+DP_LOSS_TOL, DP_PARAM_TOL = 1e-4, 1e-3
+
+
+def dp_batches():
+    """Phase 9i's global batches: 44-block (352-px) source planes as NumPy
+    arrays (Y ~ N(0, 100), CbCr ~ N(0, 30)) and `bench.py`'s two GT boxes."""
+    rng = np.random.default_rng(21)
+    out = []
+    for _ in range(DP_STEPS):
+        gt, mask = bench_gt(DP_BATCH)
+        out.append({"inputs": (rng.normal(0, 100, (DP_BATCH, 44, 44, 64)).astype(np.float32),
+                               rng.normal(0, 30, (DP_BATCH, 22, 22, 128)).astype(np.float32)),
+                    "gt": gt, "gt_mask": mask})
+    return out
+
+
+def dp_train(mesh=None):
+    """Phase 9i's data-parallel step: `ssd300_ssd_custom` in float32 (TF32
+    off) with the matching kernel, `pallas_wgrad` and the v3 augment,
+    DP_STEPS steps on this rank's rows of `dp_batches()`; without a process
+    group, one process on the global batch.  Returns the per-step losses,
+    the final state, the kernel launches of the steps, their seconds and
+    the trainer."""
+    from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
+    from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
+    from jpeg_detection_resnet_ssd_torch.ops import bipartite_match as bm
+    from jpeg_detection_resnet_ssd_torch.ops import conv_grad, dct_flip, make_dct_detection_augment_v3
+    from jpeg_detection_resnet_ssd_torch.parallel import make_mesh, shard_batch
+    from jpeg_detection_resnet_ssd_torch.train import ExperimentConfig, build_trainer
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = mesh or make_mesh()
+    config = ExperimentConfig(model="ssd300_ssd_custom", compute_dtype="float32", pallas_wgrad=True,
+                              batch_size=DP_BATCH)
+    encoder = TargetEncoder(AnchorSpec(img_height=304, img_width=304),
+                            ssd_predictor_sizes("resnet_custom"))
+    trainer, module, _ = build_trainer(config, target_encoder=encoder,
+                                       augment_fn=make_dct_detection_augment_v3(38), mesh=mesh)
+    batches = [shard_batch(b, mesh) for b in dp_batches()]
+    torch.cuda.synchronize()
+    bm.LAUNCHES = conv_grad.LAUNCHES = dct_flip.LAUNCHES = 0
+    t0 = time.perf_counter()
+    metrics = trainer.train_steps(batches, config.seed + 1)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return {"loss": metrics["total_loss"].cpu(), "seconds": seconds,
+            "state": {k: v.detach().cpu().clone() for k, v in module.state_dict().items()},
+            "launches": {"match": bm.LAUNCHES, "flip": dct_flip.LAUNCHES,
+                         "wgrad": conv_grad.LAUNCHES},
+            "trainer": trainer, "batches": batches}
+
+
+def dp_worker(argv) -> int:
+    """`chip_smoke.py --dp-worker RANK WORLD STORE OUT`: one gloo rank of
+    phase 9i's step on the card (NCCL refuses two ranks on one device)."""
+    import datetime
+
+    from jpeg_detection_resnet_ssd_torch.utils import maybe_initialize_distributed
+
+    rank, world, store, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    maybe_initialize_distributed(init_method=f"file://{store}", world_size=world, rank=rank,
+                                 backend="gloo", timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
+    try:
+        result = dp_train()
+        result.pop("trainer"), result.pop("batches")
+        torch.save(result, f"{out}.{rank}")
+    finally:
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def cli_worker(argv) -> int:
+    """`chip_smoke.py --cli-worker ARGS`: `cli.main(ARGS)` in this process,
+    then the kernel launches it made as a JSON line."""
+    from jpeg_detection_resnet_ssd_torch.cli import main as cli
+    from jpeg_detection_resnet_ssd_torch.ops import bipartite_match as bm
+    from jpeg_detection_resnet_ssd_torch.ops import conv_grad, dct_flip
+
+    bm.LAUNCHES = conv_grad.LAUNCHES = dct_flip.LAUNCHES = 0
+    cli.main(argv)
+    if torch.cuda.is_available():
+        torch.cuda.synchronize()
+    print(json.dumps({"launches": {"match": bm.LAUNCHES, "flip": dct_flip.LAUNCHES,
+                                   "wgrad": conv_grad.LAUNCHES}}))
+    return 0
+
+
+def self_command(*args) -> list[str]:
+    return [sys.executable, os.path.abspath(__file__), *map(str, args)]
+
+
+def run_data_parallel(card) -> dict:
+    """Phase 9i: `bench`, the 2-rank gloo step against one process, the
+    NCCL world-of-1 `train-detect` and its restart, and `profile_trace`.
+    Returns each rank's launches of the 2-rank step."""
+    import socket
+
+    from jpeg_detection_resnet_ssd_torch.cli import main as cli
+    from jpeg_detection_resnet_ssd_torch.utils import StepTimer, profile_trace
+
+    t_phase = time.perf_counter()
+    print(f"[9i] bench, data parallelism and profiling on {card}")
+    # 1. bench, full width and depth, float32 (TF32 off since phase 4).
+    for model, batch in (("ssd300_ssd_custom", 32), (CLS_MODEL, 64)):
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            cli.main(["bench", "--model", model, "--batch-size", str(batch), "--runs", "10"])
+        row = json.loads(out.getvalue().strip().splitlines()[-1])
+        print(f"    bench {json.dumps(row)} (eval forward, f32, TF32 off, best of 3 CUDA-event "
+              f"windows of 10 calls)  [{card}]")
+        check(row["images_per_sec"] > 0 and row["device"] == torch.cuda.get_device_name(0),
+              f"bench {model} timed on the card")
+        if model == "ssd300_ssd_custom":
+            check(row["params"] == 51_984_110, "bench counts 51,984,110 detector parameters")
+
+    # B4's bf16 tiling plans at a rank's rows (16 of the global 32).
+    from jpeg_detection_resnet_ssd_torch.ops import conv_grad
+
+    gen = torch.Generator().manual_seed(22)
+    for h, c, k, _ in WGRAD_SHAPES:
+        x = torch.randn(DP_BATCH // 2, h, h, c, generator=gen).to("cuda", torch.bfloat16)
+        dy = torch.randn(DP_BATCH // 2, h, h, k, generator=gen).to("cuda", torch.bfloat16)
+        got = conv_grad.conv3x3_filter_grad(x, dy)
+        ref = conv_grad.conv3x3_filter_grad_reference(x, dy)
+        err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+        check(err <= WGRAD_TOL * scale, f"dW bfloat16 B={DP_BATCH // 2} {h}x{h} {c}->{k} "
+                                        f"(a rank's rows): max |diff| {err:.3g}")
+    del x, dy, got, ref
+
+    # 2. Two gloo ranks on the card against one process on the global batch.
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        store, out = os.path.join(tmp, "store"), os.path.join(tmp, "dp")
+        t0 = time.perf_counter()
+        procs = [subprocess.Popen(self_command("--dp-worker", r, 2, store, out),
+                                  stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+                 for r in range(2)]
+        try:
+            logs = [p.communicate(timeout=DP_TIMEOUT_S)[0] for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait()
+        for r, (p, log) in enumerate(zip(procs, logs)):
+            check(p.returncode == 0, f"data-parallel rank {r} exited 0:\n{log[-4000:]}")
+        ranks = [torch.load(f"{out}.{r}", weights_only=False) for r in range(2)]
+        print(f"    2 gloo ranks: {time.perf_counter() - t0:.1f} s with start-up; their "
+              f"{DP_STEPS} steps {ranks[0]['seconds']:.2f} / {ranks[1]['seconds']:.2f} s "
+              f"(host clock, gloo stages every collective through host memory)  [{card}]")
+    torch.cuda.empty_cache()
+    ref = dp_train()
+    print(f"    one process, global batch {DP_BATCH}: {DP_STEPS} steps {ref['seconds']:.2f} s; "
+          f"losses {[round(float(v), 6) for v in ref['loss']]}")
+    keys = [k for k, v in ref["state"].items() if v.is_floating_point()]
+    largest = max(float(ref["state"][k].abs().max()) for k in keys)
+    for r, res in enumerate(ranks):
+        loss_err = float(((res["loss"] - ref["loss"]).abs() / ref["loss"].abs()).max())
+        p_err = max(float((res["state"][k] - ref["state"][k]).abs().max()) for k in keys)
+        print(f"    rank {r}: losses {[round(float(v), 6) for v in res['loss']]}, relative diff "
+              f"{loss_err:.3g}; parameters max |diff| {p_err:.3g} of max |p| {largest:.4g}; "
+              f"launches {res['launches']}")
+        check(loss_err <= DP_LOSS_TOL, f"rank {r}'s losses within {DP_LOSS_TOL:g} of one process's")
+        check(p_err <= DP_PARAM_TOL * largest,
+              f"rank {r}'s parameters within {DP_PARAM_TOL:g} of the largest")
+        check(res["launches"] == {"match": DP_STEPS, "flip": 2 * DP_STEPS, "wgrad": 24 * DP_STEPS},
+              f"rank {r} launched B2 1, B3 2 and B4 24 times a step")
+    check(all(torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]) for k in ref["state"]),
+          "the two ranks' parameters and statistics are bit-identical")
+
+    # 4. profile_trace around 2 steps of the reference's trainer.
+    with tempfile.TemporaryDirectory() as tmp:
+        trainer, timer = ref["trainer"], StepTimer(skip=0)
+        gen = torch.Generator().manual_seed(5)
+        with profile_trace(tmp):
+            timer.tick()
+            for batch in ref["batches"]:
+                trainer.train_step(batch, gen)
+                torch.cuda.synchronize()
+                timer.tick()
+        with open(os.path.join(tmp, "trace.json")) as f:
+            events = json.load(f)["traceEvents"]
+        kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+        print(f"    profile_trace: {len(events)} events, {len(kernels)} distinct kernels, "
+              f"StepTimer {timer.steps_per_sec():.3f} steps/s (f32, profiler on)  [{card}]")
+        check(any("wgrad_f32_kernel" in k for k in kernels)
+              and any("bipartite_match_kernel" in k for k in kernels)
+              and any("dct_flip_h_kernel" in k for k in kernels),
+              "the trace holds B4's, B2's and B3's kernels")
+    del ref
+    torch.cuda.empty_cache()
+
+    # 3. train-detect under torchrun's environment, a world of 1 on NCCL.
+    with tempfile.TemporaryDirectory() as tmp:
+        voc, stem = write_detect_inputs(tmp)
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        env = dict(os.environ, RANK="0", WORLD_SIZE="1", LOCAL_RANK="0",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port))
+        argv = ["train-detect", "--voc-root", voc, "--device-augment", "--pack-cache", stem,
+                "--pallas-wgrad", "--batch-size", 32, "--steps-per-epoch", 3, "--epochs", 3,
+                "--output-dir", os.path.join(tmp, "exp")]
+        rows = []
+        # Each run is a new process, so its first epoch is cold (cuDNN's
+        # algorithm choice, the allocator); the restart's second epoch is warm.
+        for steps, extra in ((3, ["--max-steps", 3]), (6, ["--restart"])):
+            proc = subprocess.run(self_command("--cli-worker", *argv, *extra), env=env,
+                                  capture_output=True, text=True, timeout=DP_TIMEOUT_S)
+            check(proc.returncode == 0, f"train-detect on NCCL {' '.join(map(str, extra))} "
+                                        f"exited 0:\n{proc.stderr[-4000:]}")
+            lines = proc.stdout.strip().splitlines()
+            row, launches = json.loads(lines[-2]), json.loads(lines[-1])["launches"]
+            rows.append(row)
+            print(f"    train-detect, NCCL world of 1, {' '.join(map(str, extra))}: row "
+                  f"{json.dumps(row)}; launches {launches}")
+            check(np.isfinite(row["total_loss"]) and row["step"] == 3 * (2 * len(rows) - 1),
+                  f"NCCL run {len(rows)}: finite loss at step {row['step']}")
+            check(launches == {"match": steps, "flip": 2 * steps, "wgrad": 24 * steps},
+                  "B2 1, B3 2, B4 24 launches a step under NCCL")
+        check(rows[1]["epoch"] == 2, "--restart resumed at epoch 1 and ran epochs 1 and 2")
+        warm_ms = rows[1]["time_s"] * 1e3 / 3
+        print(f"    warm steps under NCCL (the restart's second epoch, 3 steps; fit's time_s, "
+              f"10 ms resolution; the first run's cold epoch {rows[0]['time_s'] * 1e3 / 3:.1f} ms "
+              f"a step): "
+              f"{warm_ms:.1f} ms a step, {1e3 / warm_ms:.3f} steps/s (phase 9e's number, without "
+              f"a process group, is above)  [{card}]")
+    print(f"    phase 9i: {time.perf_counter() - t_phase:.1f} s")
+    return {"launches": [r["launches"] for r in ranks]}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2509,6 +2757,7 @@ def main() -> int:
     cls_wgrad, cls_flip = run_classification(dev, card)
     fam = run_other_families(dev, card)
     serve = run_serving(dev, card, **served)
+    dp = run_data_parallel(card)
 
     print(f"[10] done in {time.perf_counter() - t_start:.1f} s")
     source = "jpeg_detection_resnet_ssd_torch/ops/csrc/{}.cu"
@@ -2520,16 +2769,19 @@ def main() -> int:
         {"name": "bipartite_match", "route": "cuda", "source": source.format("bipartite_match"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_match.py:174",
          "max_abs_err": match_err, "library_ms": None, **train["match"],
-         "vgg": {"launches": fam["launches"]["match"]}},
+         "vgg": {"launches": fam["launches"]["match"]},
+         "data_parallel": {"launches": [r["match"] for r in dp["launches"]]}},
         {"name": "conv3x3_filter_grad", "route": "cuda", "source": source.format("conv3x3_wgrad"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_conv_grad.py:128",
          "max_abs_err": max(wgrad_err, train["wgrad_step_err"], cls_wgrad["max_abs_err"],
                             fam["wgrad"]["max_abs_err"]),
-         **train["wgrad"], "classification": cls_wgrad, "vgg": fam["wgrad"]},
+         **train["wgrad"], "classification": cls_wgrad, "vgg": fam["wgrad"],
+         "data_parallel": {"launches": [r["wgrad"] for r in dp["launches"]]}},
         {"name": "dct_flip_horizontal", "route": "cuda", "source": source.format("dct_flip"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/dct_augment.py:75",
          "max_abs_err": max(flip_err, cls_flip["max_abs_err"]), "library_ms": None, **flip,
-         "classification": cls_flip, "vgg": {"launches": fam["launches"]["flip"]}},
+         "classification": cls_flip, "vgg": {"launches": fam["launches"]["flip"]},
+         "data_parallel": {"launches": [r["flip"] for r in dp["launches"]]}},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2541,4 +2793,7 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] in (["--dp-worker"], ["--cli-worker"]):
+        sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+        sys.exit((dp_worker if sys.argv[1] == "--dp-worker" else cli_worker)(sys.argv[2:]))
     sys.exit(main())

@@ -2,7 +2,7 @@
 
 The JAX package beside this one is the reference; this package mirrors its
 subpackage layout (`boxes`, `models`, `losses`, `train`, `ops`, `compat`,
-`dctjpeg`, `data`, `eval`, `cli`, `utils`), public function names, NHWC
+`dctjpeg`, `data`, `eval`, `serve`, `parallel`, `cli`, `utils`), public function names, NHWC
 input contracts and Keras layer names, so any ported function can be called
 on both packages with the same NumPy arrays.
 

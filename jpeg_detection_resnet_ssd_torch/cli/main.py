@@ -1,5 +1,5 @@
 """Command line of the PyTorch port: `train-classify`, `train-detect`,
-`evaluate`, `evaluate-classify`, `compute-map`, `infer`, `export`.
+`evaluate`, `evaluate-classify`, `compute-map`, `infer`, `export`, `bench`.
 
     python -m jpeg_detection_resnet_ssd_torch.cli train-classify --train-dir IMAGENET \\
         [--archi ARCHI|rgb] [--device-augment --pack-cache STEM] [--pallas-wgrad]
@@ -7,7 +7,7 @@
         --val-dir IMAGENET_VAL
     python -m jpeg_detection_resnet_ssd_torch.cli train-detect --voc-root VOC \\
         [--vgg | --archi ARCHI] [--device-augment --pack-cache STEM] \\
-        [--pretrained-weights KERAS.h5]
+        [--pretrained-weights KERAS.h5|SHORT_NAME|URL#md5:HEX]
     python -m jpeg_detection_resnet_ssd_torch.cli evaluate --run-dir RUN \\
         --voc-root VOC [--image-set test.txt] [--out-dir PRED] [--exported ART]
     python -m jpeg_detection_resnet_ssd_torch.cli compute-map --pred-dir PRED \\
@@ -16,6 +16,9 @@
         [--weights KERAS.h5 | --exported ART] [--output detections.png]
     python -m jpeg_detection_resnet_ssd_torch.cli export (--run-dir RUN | --model NAME \\
         [--weights KERAS.h5]) --output ART [--symbolic-batch] [--quantize int8]
+    python -m jpeg_detection_resnet_ssd_torch.cli bench [--model NAME] \\
+        [--batch-size 32] [--runs 10]
+    torchrun --nproc-per-node P -m jpeg_detection_resnet_ssd_torch.cli train-detect ...
 
 The flags are those of the JAX package's `cli/main.py`, plus `--device`
 (default `cuda`; every subcommand but `compute-map`, which is NumPy only,
@@ -26,10 +29,21 @@ VGG SSD300 (`--vgg`); `infer --model` and `evaluate` take every SSD300 of
 the registry.  `export` writes a `torch.export` serving artifact (`serve/`:
 BatchNorm folded, optionally int8, the decode's NMS as the port's custom
 operator) that `evaluate --exported` and `infer --exported` run; it takes
-`--device` where the JAX command took `--platforms`.  What is not ported
-raises `NotImplementedError` naming its ROADMAP item: `--n-model-shards >
-1` (A13) and `--pretrained-weights` short names and URLs (A14c).  The JAX
-package's `bench` subcommand is not offered yet (A14c).
+`--device` where the JAX command took `--platforms`.  `bench` times the
+eval-mode forward of a registry model with CUDA events and prints the JAX
+command's keys plus the card's name.  `--pretrained-weights` takes a local
+H5, a known short name or a URL (`compat/fetch.py`: local and `file://`
+sources, or a file pre-staged in the cache; nothing is downloaded).
+
+`train-detect` and `train-classify` train data-parallel under `torchrun`
+(one process a card, NCCL; `--device cpu` uses gloo): each rank runs on
+`cuda:{LOCAL_RANK}`, packs nothing but on rank 0, reads its shard of the
+corpus, and steps on `--batch-size // WORLD_SIZE` rows of the global batch
+(the JAX CLI hands each process a pipeline of the whole `--batch-size`,
+which its `fit` treats as the global batch; here `fit`'s global-batch
+contract holds).  Rank 0 creates the run dir and writes checkpoints and
+metrics.  What is not ported raises `NotImplementedError` naming its ROADMAP
+item: `--n-model-shards > 1` (tensor parallelism, A13b).
 """
 
 from __future__ import annotations
@@ -84,33 +98,80 @@ def _load_config(args, defaults):
     return config
 
 
-def _resume_or_create_run_dir(config) -> str:
+def _resume_or_create_run_dir(config, mesh) -> str:
     """`--restart` resumes the latest existing run of this workspace and
     project (`fit` restores its checkpoint) instead of creating a fresh dir
     whose empty checkpoints/ would train from scratch; a new run dir when
-    none exists."""
+    none exists.  Rank 0 decides and hands the path to the other ranks."""
     from jpeg_detection_resnet_ssd_torch.train.config import create_run_dir, find_latest_run
 
-    if config.restart:
-        existing = find_latest_run(config)
-        if existing is not None:
-            return existing
-        print("restart requested but no prior run found; starting fresh", file=sys.stderr)
-    return create_run_dir(config)
+    run_dir = [None]
+    if mesh.rank == 0:
+        if config.restart:
+            run_dir[0] = find_latest_run(config)
+            if run_dir[0] is None:
+                print("restart requested but no prior run found; starting fresh",
+                      file=sys.stderr)
+        if run_dir[0] is None:
+            run_dir[0] = create_run_dir(config)
+    if mesh.size > 1:
+        import torch.distributed as dist
+
+        dist.broadcast_object_list(run_dir, src=0, group=mesh.group)
+    return run_dir[0]
+
+
+def _init_distributed(args):
+    """Join `torchrun`'s process group (gloo with `--device cpu`, else NCCL)
+    when its environment is set: (mesh, device), the device
+    `cuda:{LOCAL_RANK}` for `--device cuda` under `torchrun`."""
+    from jpeg_detection_resnet_ssd_torch.parallel import make_mesh
+    from jpeg_detection_resnet_ssd_torch.utils.distributed import (
+        local_rank,
+        maybe_initialize_distributed,
+    )
+
+    maybe_initialize_distributed(backend="gloo" if args.device == "cpu" else None)
+    device = args.device
+    if device == "cuda" and "LOCAL_RANK" in os.environ:
+        device = f"cuda:{local_rank()}"
+    return make_mesh(), device
+
+
+def _rank_batch_size(config, mesh) -> int:
+    """Rows a rank's pipeline yields: the global batch over the ranks."""
+    if config.batch_size % mesh.size:
+        raise SystemExit(f"--batch-size {config.batch_size} must be divisible by the "
+                         f"{mesh.size} processes")
+    return config.batch_size // mesh.size
+
+
+def _resolve_pretrained_source(spec: str) -> str:
+    """`--pretrained-weights` accepts a local H5 path, a known-checkpoint
+    short name (checksum-verified fetch, `compat/fetch.py`), or a URL with
+    an optional `#md5:<hex>` / `#sha256:<hex>` fragment (served from the
+    cache where it was pre-staged: nothing is downloaded)."""
+    from jpeg_detection_resnet_ssd_torch.compat.fetch import (
+        KNOWN_WEIGHTS,
+        fetch_known_weights,
+        fetch_weights,
+    )
+
+    if spec in KNOWN_WEIGHTS:
+        return fetch_known_weights(spec)
+    if "://" in spec:
+        origin, _, checksum = spec.partition("#")
+        return fetch_weights(origin, checksum=checksum or None)
+    return spec
 
 
 def _maybe_import_pretrained(config):
-    """Flax-layout variables of the config's model with a local Keras H5's
-    layers imported by name (the others keep the seeded init `fit` would
-    give them), or None without `pretrained_weights`."""
+    """Flax-layout variables of the config's model with a Keras H5's layers
+    imported by name (the others keep the seeded init `fit` would give
+    them), or None without `pretrained_weights`."""
     if not config.pretrained_weights:
         return None
-    spec = config.pretrained_weights
-    if not os.path.isfile(spec):
-        raise NotImplementedError(
-            f"--pretrained-weights {spec!r} is not a local file; short names and URLs "
-            "need compat/fetch.py, not ported to PyTorch yet (ROADMAP A14c)"
-        )
+    spec = config.pretrained_weights = _resolve_pretrained_source(config.pretrained_weights)
     import torch
 
     from jpeg_detection_resnet_ssd_torch.compat import flax_variables, import_weights_by_name
@@ -176,43 +237,49 @@ def cmd_train_classify(args):
             steps_per_epoch=5000, warmup_epochs=5,
         ),
     )
-    ds = ImageFolderDataset(args.train_dir, args.class_index_json)
     _check_device_augment_flags(args, config)
+    mesh, device = _init_distributed(args)
+    rows = _rank_batch_size(config, mesh)
+    full_ds = ImageFolderDataset(args.train_dir, args.class_index_json)
+    ds = full_ds.shard(mesh.rank, mesh.size)  # a pack cache covers the whole corpus
     augment_fn = None
     if args.device_augment:
         from jpeg_detection_resnet_ssd_torch.ops import make_dct_classification_augment_v2
 
-        augment_fn = make_dct_classification_augment_v2(out_y_blocks=28, device=args.device)
+        augment_fn = make_dct_classification_augment_v2(out_y_blocks=28, device=device)
         if args.pack_cache:
             from jpeg_detection_resnet_ssd_torch.data.packed import (
                 PackedDctPipeline,
                 load_or_create,
             )
 
-            packed = load_or_create(args.pack_cache, ds, task="classification", img_size=256,
-                                    num_workers=config.num_workers)
-            pipe = PackedDctPipeline(packed, config.batch_size, train=True, seed=config.seed,
-                                     ship_dtype="int16")
+            packed = load_or_create(args.pack_cache, full_ds, task="classification",
+                                    img_size=256, num_workers=config.num_workers)
+            pipe = PackedDctPipeline(packed, rows, train=True, seed=config.seed,
+                                     ship_dtype="int16", shard_index=mesh.rank,
+                                     shard_count=mesh.size)
         else:
             # The host ships the deterministic 256-px view (epoch shuffling
             # stays on); crops and flips happen in the step.
             pipe = ClassificationPipeline(
-                ds, config.batch_size, train=True, host_augment=False, input_format="dct",
+                ds, rows, train=True, host_augment=False, input_format="dct",
                 image_size=256, num_workers=config.num_workers, seed=config.seed,
             )
     else:
         pipe = ClassificationPipeline(
-            ds, config.batch_size, train=True, input_format=config.input_format,
+            ds, rows, train=True, input_format=config.input_format,
             num_workers=config.num_workers, seed=config.seed,
         )
-    run_dir = _resume_or_create_run_dir(config)
-    print(f"run dir: {run_dir}")
+    run_dir = _resume_or_create_run_dir(config, mesh)
+    if mesh.rank == 0:
+        print(f"run dir: {run_dir}")
     _, history = fit(
         config, pipe, run_dir=run_dir, max_steps=args.max_steps,
         init_variables=_maybe_import_pretrained(config), augment_fn=augment_fn,
-        steps_per_call=args.steps_per_call, device=args.device,
+        steps_per_call=args.steps_per_call, device=device, mesh=mesh,
     )
-    print(json.dumps(history[-1] if history else {}))
+    if mesh.rank == 0:
+        print(json.dumps(history[-1] if history else {}))
 
 
 def cmd_train_detect(args):
@@ -242,15 +309,18 @@ def cmd_train_detect(args):
         ),
     )
     _check_device_augment_flags(args, config)
+    mesh, device = _init_distributed(args)
+    rows = _rank_batch_size(config, mesh)
     roots = args.voc_root
-    ds = DetectionDataset.from_voc(
+    full_ds = DetectionDataset.from_voc(
         [os.path.join(r, "JPEGImages") for r in roots],
         [os.path.join(r, "ImageSets", "Main", "trainval.txt") for r in roots],
         [os.path.join(r, "Annotations") for r in roots],
     )
+    ds = full_ds.shard(mesh.rank, mesh.size)  # a pack cache covers the whole corpus
     # The anchors of the model the run trains (a `--config` may name any SSD300).
     sizes = ssd_predictor_sizes(ssd_family(config.model))
-    encoder = TargetEncoder(AnchorSpec(), sizes, n_classes=20, device=args.device)
+    encoder = TargetEncoder(AnchorSpec(), sizes, n_classes=20, device=device)
     augment_fn = None
     if args.device_augment:
         # The host ships 352-px (44-block) source maps; photometric, expand
@@ -259,14 +329,14 @@ def cmd_train_detect(args):
         from jpeg_detection_resnet_ssd_torch.ops import make_dct_detection_augment_v3
 
         encoder = TargetEncoder(AnchorSpec(img_height=304, img_width=304), sizes,
-                                n_classes=20, device=args.device)
+                                n_classes=20, device=device)
         augment_fn = make_dct_detection_augment_v3(
             out_y_blocks=38,
             expand_prob=0.5 if args.crop else 0.0,
             scale_range=(0.3, 1.0) if args.crop else (1.0, 1.0),
             photometric="pixel_hsv" if args.photometric == "pixel" else True,
             requantize_quality=args.requantize,
-            device=args.device,
+            device=device,
         )
         if args.pack_cache:
             # Decode-once corpus: epochs read memmapped coefficients instead
@@ -277,27 +347,29 @@ def cmd_train_detect(args):
             )
 
             packed = load_or_create(
-                args.pack_cache, ds, task="detection", img_height=352, img_width=352,
+                args.pack_cache, full_ds, task="detection", img_height=352, img_width=352,
                 num_workers=config.num_workers,
             )
-            pipe = PackedDctPipeline(packed, config.batch_size, train=True, seed=config.seed,
-                                     ship_dtype="int16")
+            pipe = PackedDctPipeline(packed, rows, train=True, seed=config.seed,
+                                     ship_dtype="int16", shard_index=mesh.rank,
+                                     shard_count=mesh.size)
         else:
             pipe = DetectionPipeline(
-                ds, config.batch_size, train=True, encoder=encoder, augmentation=None,
+                ds, rows, train=True, encoder=encoder, augmentation=None,
                 img_height=352, img_width=352, input_format=config.input_format,
                 num_workers=config.num_workers, seed=config.seed, device_encode=True,
             )
     else:
         # Padded GT to the step, which encodes the targets on the device.
         pipe = DetectionPipeline(
-            ds, config.batch_size, train=True, encoder=encoder,
+            ds, rows, train=True, encoder=encoder,
             augmentation=SSDDataAugmentation(crop=args.crop),
             input_format=config.input_format, num_workers=config.num_workers,
             seed=config.seed, device_encode=True,
         )
-    run_dir = _resume_or_create_run_dir(config)
-    print(f"run dir: {run_dir}")
+    run_dir = _resume_or_create_run_dir(config, mesh)
+    if mesh.rank == 0:
+        print(f"run dir: {run_dir}")
     val_fn = None
     if args.val_image_set:
         root = roots[0]
@@ -315,9 +387,10 @@ def cmd_train_detect(args):
     _, history = fit(
         config, pipe, val_fn=val_fn, run_dir=run_dir, max_steps=args.max_steps,
         init_variables=_maybe_import_pretrained(config), target_encoder=encoder,
-        augment_fn=augment_fn, steps_per_call=args.steps_per_call, device=args.device,
+        augment_fn=augment_fn, steps_per_call=args.steps_per_call, device=device, mesh=mesh,
     )
-    print(json.dumps(history[-1] if history else {}))
+    if mesh.rank == 0:
+        print(json.dumps(history[-1] if history else {}))
 
 
 def _exported_infer(path):
@@ -640,6 +713,59 @@ def cmd_export(args):
     }))
 
 
+def cmd_bench(args):
+    """Forward throughput and parameter count of a registry model at its
+    seeded init (the JAX `bench`, role of the reference's
+    `inference_time.py`): the eval-mode forward only, at `--batch-size`
+    copies of the example input's first row; on the card `--runs` calls a
+    CUDA-event window (`utils.timing.cuda_times_ms`), on the CPU a host-clock
+    window; the best images/s of 3 windows.  Prints JSON with the JAX keys
+    (`model`, `params`, `batch_size`, `images_per_sec`) and `device`, the
+    card's name (or "cpu")."""
+    import time
+
+    import numpy as np
+    import torch
+
+    from jpeg_detection_resnet_ssd_torch.eval.imagenet_eval import count_params
+    from jpeg_detection_resnet_ssd_torch.models import build_model
+    from jpeg_detection_resnet_ssd_torch.utils.timing import cuda_times_ms
+
+    kwargs = {"n_classes": 20} if args.model.startswith("ssd300") else {"num_classes": 1000}
+    module, example = build_model(args.model, device=args.device, **kwargs)
+    device = next(module.parameters()).device
+    example_inputs = example()
+    leaves = example_inputs if isinstance(example_inputs, tuple) else (example_inputs,)
+    batch = tuple(torch.as_tensor(np.repeat(x[:1], args.batch_size, axis=0), device=device)
+                  for x in leaves)
+    inputs = batch if isinstance(example_inputs, tuple) else batch[0]
+
+    def forward():
+        with torch.no_grad():
+            module(inputs)
+
+    windows = 3
+    if device.type == "cuda":
+        window_ms = cuda_times_ms(forward, iters=args.runs, windows=windows)
+        name = torch.cuda.get_device_name(device)
+    else:
+        forward()
+        window_ms = []
+        for _ in range(windows):
+            t0 = time.perf_counter()
+            for _ in range(args.runs):
+                forward()
+            window_ms.append((time.perf_counter() - t0) * 1e3 / args.runs)
+        name = "cpu"
+    print(json.dumps({
+        "model": args.model,
+        "params": count_params(module),
+        "batch_size": args.batch_size,
+        "images_per_sec": round(max(args.batch_size * 1e3 / t for t in window_ms), 1),
+        "device": name,
+    }))
+
+
 def build_parser():
     p = argparse.ArgumentParser(prog="python -m jpeg_detection_resnet_ssd_torch.cli")
     sub = p.add_subparsers(dest="command", required=True)
@@ -777,6 +903,15 @@ def build_parser():
     ex.add_argument("--device", default="cuda",
                     help="where the artifact runs (default cuda; cpu for tests)")
     ex.set_defaults(fn=cmd_export)
+
+    be = sub.add_parser("bench")
+    be.add_argument("--model", default="ssd300_ssd_custom")
+    be.add_argument("--batch-size", type=int, default=32)
+    be.add_argument("--runs", type=int, default=10,
+                    help="forward calls a timed window (3 windows, the best reported)")
+    be.add_argument("--device", default="cuda",
+                    help="where the model runs (default cuda; cpu for tests)")
+    be.set_defaults(fn=cmd_bench)
     return p
 
 

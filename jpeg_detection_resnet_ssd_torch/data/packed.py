@@ -19,9 +19,10 @@ classification corpus (`create_classification`) has the same planes at a
 square frame, `labels.npz` with int32 `labels` and `image_ids`, and
 `meta.json` with n, img_size, quality and `task: classification`.
 
-Not ported yet: the barrier of a multi-process `load_or_create` (ROADMAP
-A13): here the one process is process 0.  PIL and cv2 are imported inside
-the functions that decode, so the package imports without them.
+`load_or_create` is safe across the ranks of a process group: rank 0 alone
+packs, every rank waits at one barrier, then each validates.  PIL and cv2
+are imported inside the functions that decode, so the package imports
+without them.
 """
 
 from __future__ import annotations
@@ -31,10 +32,12 @@ import os
 from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
+import torch.distributed
 
 from jpeg_detection_resnet_ssd_torch.data import augment as aug
 from jpeg_detection_resnet_ssd_torch.data.dct_convert import rgb_to_dct_tensors
 from jpeg_detection_resnet_ssd_torch.data.pipeline import _load_record_rgb, _load_rgb
+from jpeg_detection_resnet_ssd_torch.utils.distributed import process_count, process_index
 
 
 class PackedDctDataset:
@@ -221,19 +224,27 @@ def load_or_create(
     verbose: bool = True,
     **create_kwargs,
 ) -> PackedDctDataset:
-    """Create-or-load with staleness validation, in one process.
+    """Create-or-load with staleness validation, safe across processes.
 
     Pass the full (unsharded) dataset.  The corpus is packed when
     `<stem>.meta.json` does not exist (`create_classification` for
-    `task="classification"`, else `create`); then the loaded corpus is validated
-    against the dataset's size and the pack parameters, so a stale cache (a
-    different dataset, a changed frame size or quality) raises instead of
-    training on the wrong data.  Shard at the pipeline
+    `task="classification"`, else `create`), by rank 0 alone (concurrent
+    writers would corrupt the memmaps); then every rank validates the loaded
+    corpus against the dataset's size and the pack parameters, so a stale
+    cache (a different dataset, a changed frame size or quality) raises
+    instead of training on the wrong data.  Shard at the pipeline
     (`PackedDctPipeline(shard_index=..., shard_count=...)`), never here."""
-    if not os.path.exists(stem + ".meta.json"):
+    # Every rank enters the barrier whatever it sees on disk: a rank that
+    # branched on its own os.path.exists() and saw the cache only after rank
+    # 0 had packed it would skip the barrier while the others wait in it (a
+    # TOCTOU across processes: a hang, or mispaired collectives).  Only the
+    # create decision is rank 0's.
+    if process_index() == 0 and not os.path.exists(stem + ".meta.json"):
         create = (PackedDctDataset.create_classification if task == "classification"
                   else PackedDctDataset.create)
         create(dataset, stem, num_workers=num_workers, verbose=verbose, **create_kwargs)
+    if process_count() > 1:
+        torch.distributed.barrier()
     packed = PackedDctDataset(stem)
     if len(packed) != len(dataset):
         raise ValueError(

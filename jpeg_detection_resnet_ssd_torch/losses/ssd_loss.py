@@ -16,6 +16,14 @@ The k largest are summed through the exact k-th largest value, found by a
 (monotone in the value), not by a sort or `torch.topk`: ties at the
 threshold share the remaining weight evenly, so value and gradient are the
 JAX package's.
+
+Inside `parallel.data_parallel(mesh)` with P > 1 ranks, each holding its
+rows of the global batch, the mining is the global batch's: the positives
+and nonzero-negative counts are all-reduced, and the threshold and the tie
+weight come from the all-gathered negative losses, so they are the ones one
+process finds on the whole batch.  Each rank's loss is its rows' share of
+the global numerator over the global positives count; the shares sum to the
+single-process loss.
 """
 
 from __future__ import annotations
@@ -23,6 +31,8 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+
+from jpeg_detection_resnet_ssd_torch.parallel.mesh import active_mesh, all_gather_rows, all_reduce_sum
 
 _NONNEG_BITS_END = 0x7F800000  # bit pattern of +inf
 
@@ -41,20 +51,24 @@ def _kth_largest_nonneg(flat: torch.Tensor, k: torch.Tensor) -> torch.Tensor:
     return lo.view(torch.float32)
 
 
-def top_k_sum(flat: torch.Tensor, n_keep: torch.Tensor) -> torch.Tensor:
+def top_k_sum(flat: torch.Tensor, n_keep: torch.Tensor,
+              pool: torch.Tensor | None = None) -> torch.Tensor:
     """Sum of the ceil(n_keep) largest entries of a nonnegative vector, for
-    a data-dependent n_keep (0 <= n_keep <= len(flat)).
+    a data-dependent n_keep (0 <= n_keep <= len(pool)).
 
     Gradient: 1 on entries above the k-th largest value t; the entries equal
-    to t share the remaining weight (k - #{x > t}) evenly."""
+    to t share the remaining weight (k - #{x > t}) evenly.
+
+    `pool` is the whole vector of which `flat` is one part (default: `flat`
+    itself): t, the count above it and the ties are the pool's, and the sum
+    runs over `flat`'s entries, so the parts' sums add up to the pool's."""
+    pool = flat.detach() if pool is None else pool
     n_keep = torch.as_tensor(n_keep, dtype=flat.dtype, device=flat.device)
     k = torch.ceil(n_keep).to(torch.int32)
-    t = _kth_largest_nonneg(flat.detach(), torch.clamp_min(k, 1))
-    above = flat > t
-    tie_w = (k - above.sum()).to(flat.dtype)
-    ties = flat == t
-    n_ties = torch.clamp_min(ties.sum(), 1).to(flat.dtype)
-    w = above.to(flat.dtype) + ties.to(flat.dtype) * (tie_w / n_ties)
+    t = _kth_largest_nonneg(pool, torch.clamp_min(k, 1))
+    tie_w = (k - (pool > t).sum()).to(flat.dtype)
+    n_ties = torch.clamp_min((pool == t).sum(), 1).to(flat.dtype)
+    w = (flat > t).to(flat.dtype) + (flat == t).to(flat.dtype) * (tie_w / n_ties)
     total = (flat * w.detach()).sum()
     return torch.where(k > 0, total, torch.zeros_like(total))
 
@@ -90,13 +104,19 @@ class SSDLoss:
         pos_class_loss = (cls_loss * positives).sum()
         flat = (cls_loss * negatives).reshape(-1)
         n_neg_losses = (flat > 0).sum().to(torch.float32)
+        pool = None
+        mesh = active_mesh()
+        if mesh is not None:  # the global batch's counts and negative losses
+            n_positive, n_neg_losses = all_reduce_sum(
+                torch.stack([n_positive.detach().float(), n_neg_losses]), mesh)
+            pool = all_gather_rows(flat, mesh)
         n_keep = torch.minimum(
             torch.clamp_min(self.neg_pos_ratio * n_positive, float(self.n_neg_min)),
             n_neg_losses,
         )
         # n_keep <= #nonzero losses, so the threshold is > 0 whenever
         # n_keep >= 1: the reference's `flat > 0` guard is implied.
-        neg_class_loss = top_k_sum(flat, n_keep)
+        neg_class_loss = top_k_sum(flat, n_keep, pool)
 
         loc = (loc_loss * positives).sum()
         return (pos_class_loss + neg_class_loss + self.alpha * loc) / torch.clamp_min(n_positive, 1.0)

@@ -35,6 +35,11 @@ context manager the trainer opens around the forward.
 statistics without moving its running statistics: the recompute of a
 checkpointed (`remat`) branch runs under it, so a branch's statistics move
 once a step, as in the JAX package, where the recompute is a pure function.
+
+Inside `parallel.data_parallel(mesh)` with P > 1 ranks, train-mode
+BatchNorm normalises with the statistics of the global batch and `Dropout`
+keeps the rank's rows of a mask drawn for the global batch, so P ranks
+compute what one process computes on the global batch (`parallel/mesh.py`).
 """
 
 from __future__ import annotations
@@ -47,6 +52,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from jpeg_detection_resnet_ssd_torch.ops.conv_grad import conv3x3_same_wgrad
+from jpeg_detection_resnet_ssd_torch.parallel.mesh import active_mesh, all_reduce_sum, shard_batch
 
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.01  # Keras momentum 0.99
@@ -263,7 +269,13 @@ class Dropout(nn.Module):
             raise RuntimeError("a train-mode Dropout needs a generator: run the forward "
                                "inside models.layers.dropout_rng(generator)")
         keep_prob = 1.0 - self.rate
-        mask = dropout_mask(tuple(x.shape), keep_prob, _DROPOUT_GENERATOR).to(x.device)
+        mesh = active_mesh()
+        if mesh is None:
+            mask = dropout_mask(tuple(x.shape), keep_prob, _DROPOUT_GENERATOR)
+        else:  # the rank's rows of the global batch's mask
+            shape = (x.shape[0] * mesh.size, *x.shape[1:])
+            mask = shard_batch(dropout_mask(shape, keep_prob, _DROPOUT_GENERATOR), mesh)
+        mask = mask.to(x.device)
         return torch.where(mask, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -278,7 +290,14 @@ class BatchNorm(nn.BatchNorm2d):
     use the unbiased one), except under `running_stats_frozen()`.
     `momentum=None` keeps torch's cumulative average (factor
     1 / num_batches_tracked).  Eval mode normalises with the running
-    statistics.  Both return the input's dtype."""
+    statistics.  Both return the input's dtype.
+
+    Inside `parallel.data_parallel` with P > 1 ranks the train-mode
+    statistics are the global batch's: the sums of x and x^2 and the row
+    count are all-reduced with autograd, so the gradient flows through them,
+    and every rank moves its running statistics by the same values.  The
+    mean is sum / count there, where one process takes `mean()`, so the two
+    differ by float32 rounding only."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPSILON, momentum=BN_MOMENTUM)
@@ -287,8 +306,17 @@ class BatchNorm(nn.BatchNorm2d):
         if not self.training:
             return nchw_to_nhwc(super().forward(nhwc_to_nchw(x)))
         xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mean = xf.mean(dim=(0, 1, 2))
-        var = torch.clamp_min(xf.square().mean(dim=(0, 1, 2)) - mean.square(), 0.0)
+        mesh = active_mesh()
+        if mesh is None:
+            mean = xf.mean(dim=(0, 1, 2))
+            mean_sq = xf.square().mean(dim=(0, 1, 2))
+        else:
+            count = xf.new_full((1,), xf.shape[0] * xf.shape[1] * xf.shape[2])
+            sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 1, 2)),
+                                             xf.square().sum(dim=(0, 1, 2)), count]), mesh)
+            c = xf.shape[-1]
+            mean, mean_sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
+        var = torch.clamp_min(mean_sq - mean.square(), 0.0)
         if not _STATS_FROZEN:
             with torch.no_grad():
                 self.num_batches_tracked.add_(1)

@@ -41,6 +41,7 @@ from jpeg_detection_resnet_ssd_torch.ops.dct_flip import (  # noqa: F401  (re-ex
     dct_flip_horizontal,
 )
 from jpeg_detection_resnet_ssd_torch.ops.dct_resize import INTERP_BILINEAR, dct_crop_resize
+from jpeg_detection_resnet_ssd_torch.parallel.mesh import active_mesh, shard_batch
 from jpeg_detection_resnet_ssd_torch.utils.device import resolve_device
 
 # (-1)^u pattern, varying along rows of the 8x8 block
@@ -303,7 +304,10 @@ class DeviceAugment:
     `sample(batch_size, h8, w8, generator)` draws on the host, `apply(batch,
     draws)` runs the chain on the batch's device.  A call moves the batch's
     "inputs" to `device` (a CPU batch does not quietly run the chain on the
-    CPU), copies the draws there at once and applies."""
+    CPU), copies the draws there at once and applies.  Inside
+    `parallel.data_parallel(mesh)` with P > 1 ranks the batch is the rank's
+    rows: the draws are made for the global batch of P times its rows and
+    the rank keeps its own, so P ranks draw what one process draws."""
 
     sample: Callable[..., dict]
     apply: Callable[[dict, dict], dict]
@@ -317,7 +321,12 @@ class DeviceAugment:
     def __call__(self, batch: dict, generator: torch.Generator | None = None) -> dict:
         batch = self.to_device(batch)
         b, h8, w8 = batch["inputs"][0].shape[:3]
-        return self.apply(batch, _draws.to_device(self.sample(b, h8, w8, generator), self.device))
+        mesh = active_mesh()
+        if mesh is None:
+            draws = self.sample(b, h8, w8, generator)
+        else:
+            draws = shard_batch(self.sample(b * mesh.size, h8, w8, generator), mesh)
+        return self.apply(batch, _draws.to_device(draws, self.device))
 
 
 def _with_inputs(batch: dict, y, cbcr) -> dict:

@@ -1,11 +1,13 @@
 """The training loop: epochs, logging, checkpoints, NaN guard, restart.
 
 Counterpart of the JAX package's `train/loop.py` (`build_optimizer`,
-`build_trainer`, `fit`, `make_validation_fn`), on one device, for the
-detection and the classification task, with the memory levers
-`momentum_dtype="bfloat16"` and `remat`.  What the JAX package adds for
-meshes is not ported yet and raises `NotImplementedError` naming its
-ROADMAP item: `n_model_shards > 1` (A13).
+`build_trainer`, `fit`, `make_validation_fn`), for the detection and the
+classification task, with the memory levers `momentum_dtype="bfloat16"`
+and `remat`, on one device or data-parallel over the ranks of a
+`parallel.make_mesh()` mesh: `config.batch_size` is the global batch, each
+rank trains on its rows, and the step is the single-process step on the
+global batch (`train/trainer.py`).  Tensor parallelism (`n_model_shards >
+1`) is not ported yet and raises `NotImplementedError` naming ROADMAP A13b.
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ import torch
 from jpeg_detection_resnet_ssd_torch.compat import load_flax_variables
 from jpeg_detection_resnet_ssd_torch.losses import SSDLoss
 from jpeg_detection_resnet_ssd_torch.models import build_model
+from jpeg_detection_resnet_ssd_torch.parallel.mesh import Mesh, barrier, make_mesh
 from jpeg_detection_resnet_ssd_torch.train.checkpoints import CheckpointManager
 from jpeg_detection_resnet_ssd_torch.train.config import ExperimentConfig
 from jpeg_detection_resnet_ssd_torch.train.metrics import MetricWriter
@@ -111,9 +114,11 @@ def build_optimizer(config: ExperimentConfig, params, n_replicas: int = 1) -> to
 
 
 def build_trainer(config: ExperimentConfig, target_encoder=None, augment_fn=None,
-                  device: str | torch.device | None = None):
+                  device: str | torch.device | None = None, mesh: Mesh | None = None):
     """(Trainer, module, example_inputs) for `config` on `device` (None means
-    CUDA and raises without a card).  Weights are the port's init from
+    CUDA and raises without a card), data-parallel over `mesh` (None:
+    `make_mesh()`, one rank without a process group), whose rank count
+    scales the warmup schedule.  Weights (the same on every rank) are the port's init from
     `torch.Generator` seeded `config.seed`.  `config.model` is any registry
     name.  The detection task trains with the SSD loss and the selective L2
     penalty (the kernels of the neck and head layers of every SSD family,
@@ -122,7 +127,9 @@ def build_trainer(config: ExperimentConfig, target_encoder=None, augment_fn=None
     package)."""
     dev = resolve_device(device)
     if config.n_model_shards > 1:
-        raise NotImplementedError("n_model_shards > 1 is not ported to PyTorch yet (ROADMAP A13)")
+        raise NotImplementedError(
+            "n_model_shards > 1 (tensor parallelism) is not ported to PyTorch yet (ROADMAP A13b)")
+    mesh = mesh if mesh is not None else make_mesh()
     if config.task not in ("detection", "classification"):
         raise ValueError(f"unknown task {config.task!r}")
     model_kwargs = dict(config.model_kwargs)
@@ -140,13 +147,14 @@ def build_trainer(config: ExperimentConfig, target_encoder=None, augment_fn=None
     trainer = Trainer(
         model=module,
         loss_fn=loss_fn,
-        optimizer=build_optimizer(config, module.parameters()),
-        schedule=_make_schedule(config),
+        optimizer=build_optimizer(config, module.parameters(), mesh.size),
+        schedule=_make_schedule(config, mesh.size),
         target_encoder=target_encoder,
         augment_fn=augment_fn,
         freeze_bn=config.freeze_bn,
         pallas_wgrad=config.pallas_wgrad,
         device=dev,
+        mesh=mesh,
     )
     return trainer, module, example_inputs
 
@@ -164,6 +172,7 @@ def fit(
     save_every: int = 1,
     device: str | torch.device | None = None,
     steps_per_call: int = 1,
+    mesh: Mesh | None = None,
 ) -> tuple[Trainer, list[dict]]:
     """Train per `config`; returns (trainer, one history row per epoch).
 
@@ -184,12 +193,24 @@ def fit(
     call, with the JAX package's rules: a group never straddles an epoch or
     `max_steps`, the remainder runs as single steps, and the steps draw what
     single steps draw, so the run is the same whatever the group size.
+
+    With a `mesh` of P ranks (None: `make_mesh()`) `config.batch_size` is
+    the global batch, which P must divide, and `train_pipeline` yields this
+    rank's rows (`parallel.shard_batch` of a global batch, or a pipeline of
+    `batch_size // P` rows a rank).  Every rank restores the checkpoint;
+    rank 0 alone writes checkpoints and metric rows, and every rank waits
+    for each checkpoint.
     """
-    trainer, module, _ = build_trainer(config, target_encoder, augment_fn, device)
+    trainer, module, _ = build_trainer(config, target_encoder, augment_fn, device, mesh)
+    mesh = trainer.mesh
+    if config.batch_size % mesh.size:
+        raise ValueError(f"global batch_size {config.batch_size} must be divisible by the "
+                         f"mesh data axis ({mesh.size} shards)")
     if init_variables is not None:
         load_flax_variables(module, init_variables)
 
-    writer = MetricWriter(run_dir, tensorboard=config.tensorboard)
+    primary = mesh.rank == 0
+    writer = MetricWriter(run_dir if primary else None, tensorboard=config.tensorboard)
     ckpt = None
     start_epoch = 0
     if run_dir is not None:
@@ -246,7 +267,7 @@ def fit(
             "epoch": epoch,
             "step": trainer.step,
             "time_s": round(time.time() - t0, 2),
-            "lr": _schedule_value(config, trainer.step),
+            "lr": _schedule_value(config, trainer.step, mesh.size),
         }
         for k, v in epoch_metrics.items():
             row[k] = float(torch.cat(v).double().mean())
@@ -259,7 +280,9 @@ def fit(
         done = bool(max_steps) and steps_done >= max_steps
         if ckpt is not None and ((epoch + 1) % max(save_every, 1) == 0
                                  or epoch == config.epochs - 1 or done):
-            ckpt.save(trainer.step, trainer)
+            if primary:
+                ckpt.save(trainer.step, trainer)
+            barrier(mesh)
         if done:
             break
     writer.close()

@@ -20,6 +20,19 @@ Step s of a run seeded `seed` draws from `step_generator(seed, s)` and
 `dropout_step_generator(seed, s)`, whether it runs alone or in
 `train_steps`.  With `freeze_bn` the forward is in eval mode, so dropout is
 off too, as in the JAX package.
+
+With a `mesh` of P > 1 ranks (`parallel.make_mesh`), each rank steps on its
+rows of the global batch and the step is the single-process step on the
+global batch: the step runs inside `parallel.data_parallel(mesh)`, so
+BatchNorm, the SSD loss's mining, the augment's draws and dropout are
+global, and each rank's loss is its share of the global loss (the shares
+sum to it).  The gradient scale: backward of a rank's share gives that
+share's gradient (the BatchNorm all-reduce hands every rank the global
+statistics' gradient), so the parameter gradients are SUMMED over the
+ranks, not averaged, and each update equals the single-process update.
+The L2 penalty is added on rank 0 only, so the sum counts it once.  The
+reported metrics are summed the same way, so every rank reads the global
+values; the ranks' parameters stay bit-identical.
 """
 
 from __future__ import annotations
@@ -37,6 +50,13 @@ from jpeg_detection_resnet_ssd_torch.losses import (
     top_k_accuracy,
 )
 from jpeg_detection_resnet_ssd_torch.models import layers
+from jpeg_detection_resnet_ssd_torch.parallel.mesh import (
+    Mesh,
+    active_mesh,
+    all_reduce_gradients,
+    all_reduce_sum,
+    data_parallel,
+)
 from jpeg_detection_resnet_ssd_torch.utils.device import resolve_device
 
 
@@ -77,12 +97,16 @@ def dropout_step_generator(seed: int, step: int) -> torch.Generator:
 
 def detection_loss_fn(ssd_loss: SSDLoss = SSDLoss(), l2_scale: float = 5e-4):
     """(model, outputs, batch) -> (loss, metrics) for SSD training:
-    `ssd_loss` on batch["targets"] plus the selective L2 penalty."""
+    `ssd_loss` on batch["targets"] plus the selective L2 penalty (under data
+    parallelism: the rank's share of both, the penalty on rank 0)."""
 
     def fn(model, outputs, batch):
         loss = ssd_loss(batch["targets"], outputs)
-        reg = (l2_regularization_loss(model, l2_scale) if l2_scale
-               else torch.zeros((), device=loss.device))
+        mesh = active_mesh()
+        if l2_scale and (mesh is None or mesh.rank == 0):
+            reg = l2_regularization_loss(model, l2_scale)
+        else:
+            reg = torch.zeros((), device=loss.device)
         return loss + reg, {"loss": loss, "reg": reg}
 
     return fn
@@ -91,17 +115,21 @@ def detection_loss_fn(ssd_loss: SSDLoss = SSDLoss(), l2_scale: float = 5e-4):
 def classification_loss_fn():
     """(model, logits, batch) -> (loss, metrics) for classification:
     `softmax_cross_entropy` on one-hot batch["labels"], no penalty term;
-    metrics loss, top1, top5."""
+    metrics loss, top1, top5 (under data parallelism each the rank's share
+    of the global batch's mean: its rows' mean over P)."""
 
     def fn(model, outputs, batch):
         labels = batch["labels"]
         onehot = torch.nn.functional.one_hot(labels.long(), outputs.shape[-1]).float()
-        loss = softmax_cross_entropy(outputs, onehot)
-        return loss, {
-            "loss": loss,
+        metrics = {
+            "loss": softmax_cross_entropy(outputs, onehot),
             "top1": top_k_accuracy(outputs, labels, 1),
             "top5": top_k_accuracy(outputs, labels, 5),
         }
+        mesh = active_mesh()
+        if mesh is not None:
+            metrics = {k: v / mesh.size for k, v in metrics.items()}
+        return metrics["loss"], metrics
 
     return fn
 
@@ -121,6 +149,7 @@ class Trainer:
         padded GT instead of "targets".
       augment_fn: (batch, generator) -> batch, before the encoder.
       device: where the step runs; None means CUDA and raises without a card.
+      mesh: the data-parallel ranks (None: this process alone).
     """
 
     model: nn.Module
@@ -132,6 +161,7 @@ class Trainer:
     freeze_bn: bool = False
     pallas_wgrad: bool = False
     device: str | torch.device | None = None
+    mesh: Mesh | None = None
     step: int = 0
 
     def __post_init__(self):
@@ -151,7 +181,12 @@ class Trainer:
         """One optimisation step; returns 0-dim metric tensors on the device
         (reading them synchronises, so the loop reads them rarely).
         `generator` goes to the augment hook, `dropout_generator` to the
-        model's train-mode dropout (a model with dropout needs one)."""
+        model's train-mode dropout (a model with dropout needs one).  With a
+        mesh, `batch` is this rank's rows of the global batch."""
+        with data_parallel(self.mesh):
+            return self._train_step(batch, generator, dropout_generator)
+
+    def _train_step(self, batch, generator, dropout_generator) -> dict:
         if self.augment_fn is not None:
             batch = self.augment_fn(batch, generator)
         batch = dict(batch)
@@ -170,13 +205,20 @@ class Trainer:
         loss, metrics = self.loss_fn(self.model, outputs, batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
+        metrics = {**{k: v.detach() for k, v in metrics.items()}, "total_loss": loss.detach()}
+        mesh = active_mesh()
+        if mesh is not None:  # shares -> global sums (see the module docstring)
+            all_reduce_gradients(self.model.parameters(), mesh)
+            names = list(metrics)
+            summed = all_reduce_sum(torch.stack([metrics[k].float() for k in names]), mesh)
+            metrics = {k: summed[i].to(metrics[k].dtype) for i, k in enumerate(names)}
         if self.schedule is not None:
             lr = float(self.schedule(self.step))
             for group in self.optimizer.param_groups:
                 group["lr"] = lr
         self.optimizer.step()
         self.step += 1
-        return {**{k: v.detach() for k, v in metrics.items()}, "total_loss": loss.detach()}
+        return metrics
 
     def train_steps(self, batches, seed: int) -> dict:
         """K sequential steps (the JAX package fuses them into one program;

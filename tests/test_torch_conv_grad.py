@@ -151,6 +151,8 @@ STEP_SHAPES = [(38, 256, 256), (38, 128, 128), (19, 256, 256), (19, 128, 128), (
 WIDE_CASES = [(1, 300, 300, 3, 64), (1, 300, 300, 64, 64), (1, 150, 150, 64, 128),
               (1, 224, 224, 3, 64), (2, 224, 224, 64, 64)]
 PLAN_CASES = ([(32, h, h, c, k) for h, c, k in STEP_SHAPES]
+              # a rank's 16 rows of the global batch of 32 on two ranks
+              + [(16, h, h, c, k) for h, c, k in STEP_SHAPES]
               + [(1, 7, 9, 40, 150), (3, 7, 9, 40, 24), (1, 1, 1, 256, 100), (1, 3, 3, 256, 100)]
               + WIDE_CASES)
 # The plans that the kernel ran before rows wider than a stage were cut into

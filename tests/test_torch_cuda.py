@@ -464,3 +464,36 @@ def test_int8_conv_accumulators_on_the_card_equal_the_cpu(cuda, conv):
     acc = gpu.accumulate(x.to(cuda))
     assert acc.dtype == torch.int32 and acc.is_cuda
     assert torch.equal(acc.cpu(), cpu.accumulate(x))
+
+
+def test_two_gloo_ranks_on_one_card_equal_one_process(cuda, tmp_path):
+    """The data-parallel step on the card: two gloo ranks (NCCL refuses two
+    ranks on one device) take one f32 step of `ssd300_ssd_custom` with B2,
+    B3 (the v3 augment) and B4 (`pallas_wgrad`) on 4 rows each of a global
+    batch of 8; one process on the global batch is the reference.  One step:
+    at this random init a second step's loss moves by ~1e-3 of itself from
+    a rounding-level change of the first update, in one process alone too
+    (1 against 3 CPU threads).  1e-4 of the loss and 1e-3 of the largest
+    parameter, as `chip_smoke.py` holds; the ranks stay bit-identical."""
+    import torch_dp_worker as worker
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    kw = dict(device="cuda", pallas_wgrad=True, global_batch=8, steps=1)
+    procs = []
+    try:
+        results = worker.run_ranks("ssd_custom", str(tmp_path), procs, timeout=300, **kw)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    ref = worker.ssd_custom_step(**kw)
+    loss = ref["metrics"]["total_loss"]
+    largest = max(float(v.abs().max()) for v in ref["state"].values() if v.is_floating_point())
+    for r in results:
+        assert float((r["metrics"]["total_loss"] - loss).abs().max()) <= 1e-4 * float(loss.abs().max())
+    for key, want in ref["state"].items():
+        got = [r["state"][key] for r in results]
+        assert torch.equal(got[0], got[1]), key
+        if want.is_floating_point():
+            assert float((got[0] - want).abs().max()) <= 1e-3 * largest, key
+

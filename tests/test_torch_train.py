@@ -182,9 +182,9 @@ def test_fit_nan_guard(tmp_path):
 
 
 def test_what_is_not_ported_names_its_roadmap_item():
-    """Meshes (A13) still raise; the VGG classifiers (A12b), the memory
-    levers (A15) and the classification task (A12a) build."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A13"):
+    """Tensor parallelism (A13b) still raises; the VGG classifiers (A12b),
+    the memory levers (A15) and the classification task (A12a) build."""
+    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
         build_trainer(ExperimentConfig(n_model_shards=2), device="cpu")
     _, vgg, _ = build_trainer(ExperimentConfig(model="vgga", task="classification",
                                                model_kwargs={"num_classes": 7}), device="cpu")

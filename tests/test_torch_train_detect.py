@@ -18,6 +18,7 @@ import numpy as np
 import pytest
 import torch
 
+from jpeg_detection_resnet_ssd_tpu.cli import main as jax_cli
 from jpeg_detection_resnet_ssd_tpu.compat import export_keras_h5
 from jpeg_detection_resnet_ssd_tpu.models import build_model as jax_build_model
 from jpeg_detection_resnet_ssd_torch.cli import main as port_cli
@@ -180,13 +181,26 @@ def test_device_augment_flag_errors(setup, extra, message):
                        "--output-dir", str(setup["tmp"] / "exp_err"), *extra])
 
 
-@pytest.mark.parametrize("extra,item", [
-    (["--n-model-shards", "2"], "A13"),
-    (["--pretrained-weights", "https://example.invalid/w.h5"], "A14"),
-    (["--pretrained-weights", "ssd300_voc07"], "A14"),
-])
-def test_what_is_not_ported_names_its_roadmap_item(setup, extra, item):
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
+@pytest.mark.parametrize("extra,error,match", [
+    (["--n-model-shards", "2"], NotImplementedError, "ROADMAP A13b"),
+    (["--pretrained-weights", "https://example.invalid/w.h5"], OSError,
+     "pre-stage the file at"),
+    (["--pretrained-weights", "ssd300_voc07"], FileNotFoundError, "ssd300_voc07"),
+], ids=["extra0-A13", "extra1-A14", "extra2-A14"])
+def test_what_is_not_ported_names_its_roadmap_item(setup, extra, error, match, monkeypatch):
+    """Only tensor parallelism (A13b) is left unported.  A URL is served
+    from the weight cache or refused with the path to pre-stage (nothing is
+    downloaded); a name that is neither a known checkpoint nor a file fails
+    as the JAX CLI's `_resolve_pretrained_source` makes it fail: it is taken
+    for a path."""
+    def no_network(*args, **kwargs):
+        raise AssertionError("the CLI tried to open a URL")
+
+    monkeypatch.setattr("urllib.request.urlopen", no_network)
+    monkeypatch.setenv("HOME", str(setup["tmp"] / "home"))
+    if extra[-1] == "ssd300_voc07":
+        assert jax_cli._resolve_pretrained_source("ssd300_voc07") == "ssd300_voc07"
+    with pytest.raises(error, match=match):
         port_cli.main(["train-detect", "--voc-root", str(setup["voc"]), "--device", "cpu",
                        "--output-dir", str(setup["tmp"] / "exp_np"), *extra])
 
