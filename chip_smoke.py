@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; one card, nvcc
 
-Eight paths, the first five and the last at the full width of
+Nine paths, the first five and the last two at the full width of
 `ssd300_ssd_custom`:
   * inference: `build_model` -> forward on seeded DCT planes ->
     `make_inference_fn` (candidate selection, batched greedy NMS on the CUDA
@@ -44,7 +44,12 @@ Eight paths, the first five and the last at the full width of
     symbolic-batch `torch.export` artifact (`serve.export_serving_artifact`)
     and loaded back (`serve.load_serving_artifact`): the artifact's NMS is
     the custom operator that launches the NMS kernel; and the int8 model
-    (`serve.quantize_for_serving`) and its artifact.
+    (`serve.quantize_for_serving`) and its artifact;
+  * tensor parallelism: `build_trainer` on a (data, model) mesh of gloo
+    ranks sharing the card, whose model axis shards the widest kernels
+    (`parallel.shard_parameters`), and `cli.main(["train-detect",
+    "--n-model-shards", "2", ...])` on two ranks, its checkpoint restored
+    and decoded in one process.
     The card's machine has no libjpeg, so no step decodes a JPEG here.
 
 Phases (any failure exits non-zero):
@@ -208,6 +213,21 @@ Phases (any failure exits non-zero):
      run is a new process); `utils.profile_trace` around 2 steps of the
      reference's trainer (a Chrome trace holding B4's kernel) and
      `StepTimer`'s steps/s;
+ 9j. tensor parallelism (ROADMAP A13b), phase 9i's step (f32, TF32 off,
+     B2, B3, B4, the v3 augment, global batch 32) on gloo ranks sharing the
+     card (this script with `--dp-worker`), each arm held to one process
+     on the global batch (loss 1e-4, parameters 1e-3 of the largest, the
+     ranks' gathered states bit-identical, B2 1, B3 2, B4 24 launches a
+     step a rank): a 1x2 mesh at the 1024 rule for 2 steps (against phase
+     9i's one process; 38,352,622 parameters a rank), a 2x2 mesh for 1
+     step, a 1x2 mesh at a 512 rule for 1 step with every B4 launch held to
+     its plain version (1e-4), 3 of them on 256-column output slices; then
+     `train-detect --n-model-shards 2` on 2 ranks (`--tp-cli-worker`), 3
+     steps from phase 9e's corpus in f32 and `--restart` for 3 more, whose
+     last checkpoint, restored in this process, equals the ranks' gathered
+     parameters, gives their train-mode forward (1e-3 of the largest) and
+     decodes through B1 once; each rank's launches, model-axis collectives
+     a step, parameter and momentum bytes, peak memory and seconds;
  10. the `kernels` JSON line (B3's and B4's entries with a `classification`
      part: the train-classify run's launches and the per-step times at the
      classification shapes; every entry with a `vgg` part: the launches of
@@ -215,7 +235,9 @@ Phases (any failure exits non-zero):
      the per-step times at ssd300_vgg_dct's 13 shapes and the wide maps';
      B1's entry with a `serve` part: its launches inside 9h's artifact;
      B2's, B3's and B4's with a `data_parallel` part: each rank's launches
-     in 9i's 2-rank step), the card line, and the final JSON line.
+     in 9i's 2-rank step; every entry with a `tensor_parallel` part: each
+     rank's launches in each arm of 9j, B1's in its decode), the card line,
+     and the final JSON line.
 
 Weights are the port's seeded init (torch.Generator seeded 0); for inference
 the BatchNorm running statistics are calibrated on the batch-32 request (one
@@ -228,6 +250,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import copy
+import functools
 import io
 import json
 import os
@@ -2494,54 +2517,97 @@ def dp_batches():
     return out
 
 
-def dp_train(mesh=None):
-    """Phase 9i's data-parallel step: `ssd300_ssd_custom` in float32 (TF32
-    off) with the matching kernel, `pallas_wgrad` and the v3 augment,
-    DP_STEPS steps on this rank's rows of `dp_batches()`; without a process
-    group, one process on the global batch.  Returns the per-step losses,
-    the final state, the kernel launches of the steps, their seconds and
-    the trainer."""
+def dp_train(n_model=1, min_features=1024, steps=DP_STEPS, record_wgrad=False):
+    """Phase 9i's data-parallel step and phase 9j's tensor-parallel one:
+    `ssd300_ssd_custom` in float32 (TF32 off) with the matching kernel,
+    `pallas_wgrad` and the v3 augment, `steps` steps on this rank's rows of
+    `dp_batches()`, on `make_mesh(n_model=n_model)` with the kernels of at
+    least `min_features` outputs sharded over the model axis; without a
+    process group, one process on the global batch.  Returns the per-step
+    losses, the final state (whole: the sharded kernels gathered), the
+    kernel launches, the model-axis collectives and the seconds of the
+    steps, this rank's parameter and momentum bytes and peak memory, and
+    the trainer; with `record_wgrad`, each filter gradient of the steps
+    against its plain version."""
     from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
     from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
     from jpeg_detection_resnet_ssd_torch.ops import bipartite_match as bm
     from jpeg_detection_resnet_ssd_torch.ops import conv_grad, dct_flip, make_dct_detection_augment_v3
-    from jpeg_detection_resnet_ssd_torch.parallel import make_mesh, shard_batch
-    from jpeg_detection_resnet_ssd_torch.train import ExperimentConfig, build_trainer
+    from jpeg_detection_resnet_ssd_torch.parallel import mesh as pmesh
+    from jpeg_detection_resnet_ssd_torch.parallel import make_mesh, shard_batch, tensor_parallel_rule
+    from jpeg_detection_resnet_ssd_torch.train import (
+        ExperimentConfig,
+        build_trainer,
+        checkpoint_state,
+    )
 
     torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
-    mesh = mesh or make_mesh()
+    mesh = make_mesh(n_model=n_model)
     config = ExperimentConfig(model="ssd300_ssd_custom", compute_dtype="float32", pallas_wgrad=True,
-                              batch_size=DP_BATCH)
+                              batch_size=DP_BATCH, n_model_shards=n_model)
     encoder = TargetEncoder(AnchorSpec(img_height=304, img_width=304),
                             ssd_predictor_sizes("resnet_custom"))
-    trainer, module, _ = build_trainer(config, target_encoder=encoder,
-                                       augment_fn=make_dct_detection_augment_v3(38), mesh=mesh)
-    batches = [shard_batch(b, mesh) for b in dp_batches()]
+    trainer, module, _ = build_trainer(
+        config, target_encoder=encoder, augment_fn=make_dct_detection_augment_v3(38), mesh=mesh,
+        tp_rule=functools.partial(tensor_parallel_rule, min_features=min_features))
+    batches = [shard_batch(b, mesh) for b in dp_batches()[:steps]]
+    kernel, recorded = conv_grad.conv3x3_filter_grad, []
+
+    def record(x, dy):
+        dw = kernel(x, dy)
+        recorded.append((x.clone(), dy.clone(), dw.clone()))
+        return dw
+
+    if record_wgrad:
+        conv_grad.conv3x3_filter_grad = record
     torch.cuda.synchronize()
-    bm.LAUNCHES = conv_grad.LAUNCHES = dct_flip.LAUNCHES = 0
+    torch.cuda.reset_peak_memory_stats()
+    bm.LAUNCHES = conv_grad.LAUNCHES = dct_flip.LAUNCHES = pmesh.MODEL_COLLECTIVES = 0
     t0 = time.perf_counter()
-    metrics = trainer.train_steps(batches, config.seed + 1)
-    torch.cuda.synchronize()
+    try:
+        metrics = trainer.train_steps(batches, config.seed + 1)
+        torch.cuda.synchronize()
+    finally:
+        conv_grad.conv3x3_filter_grad = kernel
     seconds = time.perf_counter() - t0
-    return {"loss": metrics["total_loss"].cpu(), "seconds": seconds,
-            "state": {k: v.detach().cpu().clone() for k, v in module.state_dict().items()},
-            "launches": {"match": bm.LAUNCHES, "flip": dct_flip.LAUNCHES,
-                         "wgrad": conv_grad.LAUNCHES},
-            "trainer": trainer, "batches": batches}
+    out = {"loss": metrics["total_loss"].cpu(), "seconds": seconds,
+           "launches": {"match": bm.LAUNCHES, "flip": dct_flip.LAUNCHES,
+                        "wgrad": conv_grad.LAUNCHES},
+           "model_collectives": pmesh.MODEL_COLLECTIVES,
+           "peak_bytes": torch.cuda.max_memory_allocated(),
+           "param_bytes": sum(p.numel() * p.element_size() for p in module.parameters()),
+           "momentum_bytes": sum(s["momentum_buffer"].numel() * s["momentum_buffer"].element_size()
+                                 for s in trainer.optimizer.state.values()),
+           "n_params": sum(p.numel() for p in module.parameters())}
+    if record_wgrad:
+        shares = []
+        for x, dy, got in recorded:
+            ref = conv_grad.conv3x3_filter_grad_reference(x, dy)
+            err, scale = float((got - ref).abs().max()), float(ref.abs().max())
+            shares.append((tuple(x.shape[1:]), dy.shape[-1],
+                           err / scale if scale else (0.0 if err == 0.0 else float("inf"))))
+        out["wgrad_shares"] = shares
+        del recorded
+    out["state"] = {k: v.detach().cpu().clone()
+                    for k, v in checkpoint_state(trainer)["model"].items()}
+    return {**out, "trainer": trainer, "batches": batches}
 
 
 def dp_worker(argv) -> int:
-    """`chip_smoke.py --dp-worker RANK WORLD STORE OUT`: one gloo rank of
-    phase 9i's step on the card (NCCL refuses two ranks on one device)."""
+    """`chip_smoke.py --dp-worker RANK WORLD STORE OUT [N_MODEL MIN_FEATURES
+    STEPS RECORD]`: one gloo rank of phase 9i's step (or 9j's, on a mesh of
+    N_MODEL model ranks) on the card (NCCL refuses two ranks on one
+    device)."""
     import datetime
 
     from jpeg_detection_resnet_ssd_torch.utils import maybe_initialize_distributed
 
     rank, world, store, out = int(argv[0]), int(argv[1]), argv[2], argv[3]
+    n_model, min_features, steps, record = (int(a) for a in argv[4:8] or (1, 1024, DP_STEPS, 0))
     maybe_initialize_distributed(init_method=f"file://{store}", world_size=world, rank=rank,
                                  backend="gloo", timeout=datetime.timedelta(seconds=DP_TIMEOUT_S))
     try:
-        result = dp_train()
+        result = dp_train(n_model, min_features, steps, bool(record))
         result.pop("trainer"), result.pop("batches")
         torch.save(result, f"{out}.{rank}")
     finally:
@@ -2572,7 +2638,9 @@ def self_command(*args) -> list[str]:
 def run_data_parallel(card) -> dict:
     """Phase 9i: `bench`, the 2-rank gloo step against one process, the
     NCCL world-of-1 `train-detect` and its restart, and `profile_trace`.
-    Returns each rank's launches of the 2-rank step."""
+    Returns each rank's launches of the 2-rank step and the one-process
+    reference's losses and state (phase 9j's 1x2 arm takes the same
+    steps)."""
     import socket
 
     from jpeg_detection_resnet_ssd_torch.cli import main as cli
@@ -2630,6 +2698,8 @@ def run_data_parallel(card) -> dict:
               f"(host clock, gloo stages every collective through host memory)  [{card}]")
     torch.cuda.empty_cache()
     ref = dp_train()
+    one_process = {k: ref[k] for k in ("loss", "state", "peak_bytes", "param_bytes",
+                                       "momentum_bytes")}
     print(f"    one process, global batch {DP_BATCH}: {DP_STEPS} steps {ref['seconds']:.2f} s; "
           f"losses {[round(float(v), 6) for v in ref['loss']]}")
     keys = [k for k, v in ref["state"].items() if v.is_floating_point()]
@@ -2706,7 +2776,299 @@ def run_data_parallel(card) -> dict:
               f"{warm_ms:.1f} ms a step, {1e3 / warm_ms:.3f} steps/s (phase 9e's number, without "
               f"a process group, is above)  [{card}]")
     print(f"    phase 9i: {time.perf_counter() - t_phase:.1f} s")
-    return {"launches": [r["launches"] for r in ranks]}
+    return {"launches": [r["launches"] for r in ranks], "one_process": one_process}
+
+
+# Phase 9j: tensor parallelism (ROADMAP A13b), gloo ranks on the one card.
+TP_TIMEOUT_S = 300  # a worker of 9j that has not finished by then fails the run
+TP_SHARDED_PARAMS = 27_262_976  # ssd300_ssd_custom's 13 leaves of >= 1024 outputs
+TP_FORWARD_TOL = 1e-3  # one process's forward vs the sharded ranks', times max |one process|
+
+
+def run_gloo_ranks(world: int, worker_args, tmp: str) -> tuple[list, float]:
+    """`world` processes of this script with `--dp-worker` on the card, one
+    gloo group through a file store under `tmp` (a fresh directory: a used
+    store hangs a second group); each may take TP_TIMEOUT_S in all, the
+    first late or failed one fails the run and every one still alive is
+    killed.  Returns their results and the seconds with start-up."""
+    store, out = os.path.join(tmp, "store"), os.path.join(tmp, "tp")
+    logs = [open(os.path.join(tmp, f"rank{r}.log"), "w+") for r in range(world)]
+    t0 = time.perf_counter()
+    procs = [subprocess.Popen(self_command("--dp-worker", r, world, store, out, *worker_args),
+                              stdout=logs[r], stderr=subprocess.STDOUT) for r in range(world)]
+    deadline = time.monotonic() + TP_TIMEOUT_S
+    try:
+        for r, p in enumerate(procs):
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                check(False, f"rank {r} of {world} finished within {TP_TIMEOUT_S} s")
+            if p.returncode != 0:
+                logs[r].seek(0)
+                check(False, f"rank {r} of {world} exited {p.returncode}:\n"
+                             f"{logs[r].read()[-4000:]}")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        for log in logs:
+            log.close()
+    seconds = time.perf_counter() - t0
+    return [torch.load(f"{out}.{r}", weights_only=False) for r in range(world)], seconds
+
+
+def hold_to_one_process(arm: str, ranks: list, ref: dict, steps: int, card: str) -> None:
+    """Phase 9j's checks of one arm: each rank's losses within DP_LOSS_TOL
+    (relative) and whole parameters within DP_PARAM_TOL of the largest of
+    one process's, the ranks' whole states bit-identical, B2 1, B3 2 and
+    B4 24 launches a step on every rank; prints each rank's launches,
+    model-axis collectives a step, parameter and momentum bytes and peak
+    memory."""
+    keys = [k for k, v in ref["state"].items() if v.is_floating_point()]
+    largest = max(float(ref["state"][k].abs().max()) for k in keys)
+    for r, res in enumerate(ranks):
+        want = ref["loss"][:steps]
+        loss_err = float(((res["loss"] - want).abs() / want.abs()).max())
+        p_err = max(float((res["state"][k] - ref["state"][k]).abs().max()) for k in keys)
+        print(f"    {arm} rank {r}: losses {[round(float(v), 6) for v in res['loss']]}, relative "
+              f"diff {loss_err:.3g}; parameters max |diff| {p_err:.3g} of max |p| {largest:.4g}; "
+              f"launches {res['launches']}; {res['model_collectives'] / steps:g} model-axis "
+              f"collectives a step; {res['n_params']:,} parameters, {res['param_bytes']:,} B of "
+              f"parameters + {res['momentum_bytes']:,} B of momentum; peak "
+              f"{res['peak_bytes'] / 2**20:.1f} MiB; {steps} steps {res['seconds']:.2f} s  "
+              f"[{card}]")
+        check(loss_err <= DP_LOSS_TOL, f"{arm} rank {r}'s losses within {DP_LOSS_TOL:g} of one "
+                                       f"process's")
+        check(p_err <= DP_PARAM_TOL * largest,
+              f"{arm} rank {r}'s whole parameters within {DP_PARAM_TOL:g} of the largest")
+        check(res["launches"] == {"match": steps, "flip": 2 * steps, "wgrad": 24 * steps},
+              f"{arm} rank {r} launched B2 1, B3 2 and B4 24 times a step")
+    check(all(torch.equal(ranks[0]["state"][k], res["state"][k])
+              for res in ranks[1:] for k in ref["state"]),
+          f"{arm}: the ranks' parameters (replicated, and sharded once gathered) and statistics "
+          f"are bit-identical")
+
+
+def tp_probe(dev):
+    """Phase 9j's probe batch: 4 seeded 38-block planes on `dev`."""
+    rng = np.random.default_rng(23)
+    return (torch.from_numpy(rng.normal(0, 100, (4, 38, 38, 64)).astype(np.float32)).to(dev),
+            torch.from_numpy(rng.normal(0, 30, (4, 19, 19, 128)).astype(np.float32)).to(dev))
+
+
+def probe_forward(model, inputs) -> torch.Tensor:
+    """The train-mode forward (batch statistics, which keep a random model's
+    box offsets finite) with the running statistics left as they are."""
+    from jpeg_detection_resnet_ssd_torch.models import layers
+
+    model.train()
+    with torch.no_grad(), layers.running_stats_frozen():
+        return model(inputs)
+
+
+def tp_cli_worker(argv) -> int:
+    """`chip_smoke.py --tp-cli-worker OUT ARGS`: one gloo rank (RANK,
+    WORLD_SIZE, MASTER_ADDR, MASTER_PORT from the environment) of
+    `cli.main(ARGS)` on the card, TF32 off; then rank 0 saves the trained
+    model's whole parameters (gathered over the model group) and its
+    `probe_forward` of `tp_probe` to OUT, and every rank prints the kernel
+    launches of the command as a JSON line."""
+    import datetime
+
+    from jpeg_detection_resnet_ssd_torch.cli import main as cli
+    from jpeg_detection_resnet_ssd_torch.ops import bipartite_match as bm
+    from jpeg_detection_resnet_ssd_torch.ops import conv_grad, dct_flip
+    from jpeg_detection_resnet_ssd_torch.train import checkpoint_state, loop
+    from jpeg_detection_resnet_ssd_torch.utils import maybe_initialize_distributed, process_index
+
+    torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    maybe_initialize_distributed(backend="gloo", timeout=datetime.timedelta(seconds=TP_TIMEOUT_S))
+    trainers, fit = [], loop.fit
+
+    def keep_trainer(*args, **kwargs):
+        trainer, history = fit(*args, **kwargs)
+        trainers.append(trainer)
+        return trainer, history
+
+    bm.LAUNCHES = conv_grad.LAUNCHES = dct_flip.LAUNCHES = 0
+    loop.fit = keep_trainer
+    try:
+        cli.main(argv[1:])
+        torch.cuda.synchronize()
+        launches = {"match": bm.LAUNCHES, "flip": dct_flip.LAUNCHES, "wgrad": conv_grad.LAUNCHES}
+        state = checkpoint_state(trainers[0])["model"]
+        out = probe_forward(trainers[0].model, tp_probe("cuda"))
+        if process_index() == 0:
+            torch.save({"state": {k: v.cpu() for k, v in state.items()}, "out": out.cpu()},
+                       argv[0])
+        print(json.dumps({"launches": launches}))
+    finally:
+        loop.fit = fit
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def run_tp_cli(card: str) -> dict:
+    """Phase 9j's CLI arm: `train-detect --n-model-shards 2` on 2 gloo ranks
+    (f32, TF32 off), 3 steps on phase 9e's corpus and `--restart` for 3
+    more; then the last checkpoint restored in this process (the CLI's
+    `evaluate`/`export` path): its parameters equal the ranks' gathered
+    ones, its forward the ranks' sharded forward within TP_FORWARD_TOL, and
+    its shared decode runs B1 once.  Returns the launches."""
+    import socket
+
+    from jpeg_detection_resnet_ssd_torch.boxes.anchors import AnchorSpec
+    from jpeg_detection_resnet_ssd_torch.cli import main as cli
+    from jpeg_detection_resnet_ssd_torch.models import make_inference_fn
+    from jpeg_detection_resnet_ssd_torch.ops import batched_nms
+    from jpeg_detection_resnet_ssd_torch.parallel import model_shards
+    from jpeg_detection_resnet_ssd_torch.train import ExperimentConfig
+
+    launches = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        voc, stem = write_detect_inputs(tmp)
+        cfg = os.path.join(tmp, "f32.json")
+        with open(cfg, "w") as f:
+            f.write(ExperimentConfig(compute_dtype="float32", batch_size=DP_BATCH,
+                                     model_kwargs={"n_classes": 20}).to_json())
+        argv = ["train-detect", "--voc-root", voc, "--device-augment", "--pack-cache", stem,
+                "--pallas-wgrad", "--config", cfg, "--steps-per-epoch", 3, "--n-model-shards", 2,
+                "--output-dir", os.path.join(tmp, "exp")]
+        saved = os.path.join(tmp, "ranks.pt")
+        for extra in (["--epochs", 1], ["--epochs", 2, "--restart"]):
+            with socket.socket() as sock:
+                sock.bind(("localhost", 0))
+                port = sock.getsockname()[1]
+            t0 = time.perf_counter()
+            # Files, not pipes: a rank blocked on a full pipe would stall the other's collectives.
+            outs = [open(os.path.join(tmp, f"cli{r}.{e}"), "w+") for r in range(2) for e in "oe"]
+            procs = [subprocess.Popen(
+                self_command("--tp-cli-worker", saved, *argv, *extra),
+                env=dict(os.environ, RANK=str(r), WORLD_SIZE="2", MASTER_ADDR="localhost",
+                         MASTER_PORT=str(port)),
+                stdout=outs[2 * r], stderr=outs[2 * r + 1], text=True) for r in range(2)]
+            deadline = time.monotonic() + TP_TIMEOUT_S
+            what = f"train-detect --n-model-shards 2 {' '.join(map(str, extra))}"
+            try:
+                for r, p in enumerate(procs):
+                    try:
+                        p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+                    except subprocess.TimeoutExpired:
+                        check(False, f"{what}: rank {r} finished within {TP_TIMEOUT_S} s")
+                    if p.returncode != 0:
+                        outs[2 * r + 1].seek(0)
+                        check(False, f"{what}: rank {r} exited {p.returncode}:\n"
+                                     f"{outs[2 * r + 1].read()[-4000:]}")
+                lines = []
+                for r in range(2):
+                    outs[2 * r].seek(0)
+                    lines.append(outs[2 * r].read().strip().splitlines())
+            finally:
+                for p in procs:
+                    if p.poll() is None:
+                        p.kill()
+                        p.wait()
+                for f in outs:
+                    f.close()
+            run_dir = next(line.split(": ", 1)[1] for line in lines[0]
+                           if line.startswith("run dir: "))
+            row = json.loads(lines[0][-2])
+            ranks = [json.loads(ls[-1])["launches"] for ls in lines]
+            launches[" ".join(map(str, extra))] = ranks
+            print(f"    {what}: {time.perf_counter() - t0:.1f} s with start-up; row "
+                  f"{json.dumps(row)}; launches {ranks}  [{card}]")
+            check(np.isfinite(row["total_loss"]) and row["step"] == 3 * len(launches),
+                  f"{what}: finite loss at step {row['step']}")
+            check(all(r == {"match": 3, "flip": 6, "wgrad": 72} for r in ranks),
+                  f"{what}: B2 1, B3 2, B4 24 launches a step on each rank")
+        config = ExperimentConfig.load(os.path.join(run_dir, "saved_config.json"))
+        trainer, module, _ = cli._restore_run(config, run_dir, "cuda")
+        ranks_saved = torch.load(saved, weights_only=False)
+        check(trainer.step == 6 and not model_shards(module),
+              "the restored checkpoint is step 6's, whole, in one process")
+        check(all(torch.equal(v.cpu(), ranks_saved["state"][k])
+                  for k, v in module.state_dict().items()),
+              "its parameters and statistics equal the ranks' gathered ones")
+        inputs = tp_probe("cuda")
+        raw = probe_forward(module, inputs)
+        err = float((raw.cpu() - ranks_saved["out"]).abs().max())
+        scale = float(raw.abs().max())
+        print(f"    one process vs the 2 sharded ranks, train-mode forward of 4 images: max "
+              f"|diff| {err:.3g} of max |out| {scale:.4g}")
+        check(err <= TP_FORWARD_TOL * scale, f"the restored model's forward equals the sharded "
+                                             f"ranks' within {TP_FORWARD_TOL:g} of the largest")
+        decode = make_inference_fn(n_classes=20, spec=AnchorSpec(), candidate_selector="shared")
+        batched_nms.LAUNCHES = 0
+        with torch.no_grad():
+            det = decode(raw)
+        torch.cuda.synchronize()
+        launches["decode"] = batched_nms.LAUNCHES
+        check(det.shape == (4, 200, 6) and bool(torch.isfinite(det).all())
+              and launches["decode"] == 1,
+              f"shared decode of the restored model: (4, 200, 6) finite, B1 launched "
+              f"{launches['decode']} time")
+        del trainer, module
+    return launches
+
+
+def run_tensor_parallel(card: str, one_process: dict) -> dict:
+    """Phase 9j: tensor parallelism on gloo ranks sharing the card
+    (`ssd300_ssd_custom`, f32, TF32 off, B2, B3 and B4, the global batch of
+    phase 9i): a 1x2 mesh at the 1024 rule for DP_STEPS steps against phase
+    9i's one process (`one_process`), a 2x2 mesh for one step, a 1x2 mesh at
+    a 512 rule for one step (B4 on 256-column output slices, each launch
+    held to its plain version), and `train-detect --n-model-shards 2`.
+    Returns each arm's launches."""
+    t_phase = time.perf_counter()
+    print(f"[9j] tensor parallelism, gloo ranks on {card}")
+    torch.cuda.empty_cache()
+    ref1 = dp_train(steps=1)
+    ref1.pop("trainer"), ref1.pop("batches")
+    print(f"    one process, global batch {DP_BATCH}: 1 step {ref1['seconds']:.2f} s, loss "
+          f"{float(ref1['loss'][0]):.6f}; {ref1['n_params']:,} parameters, "
+          f"{ref1['param_bytes']:,} B + {ref1['momentum_bytes']:,} B of momentum; peak "
+          f"{ref1['peak_bytes'] / 2**20:.1f} MiB (this process holds earlier phases' tensors too)")
+    launches, seconds = {}, {}
+    for arm, world, n_model, min_features, steps, ref in (
+            ("1x2", 2, 2, 1024, DP_STEPS, one_process),
+            ("2x2", 4, 2, 1024, 1, ref1),
+            ("1x2 rule 512", 2, 2, 512, 1, ref1)):
+        torch.cuda.empty_cache()
+        record = int(min_features == 512)
+        with tempfile.TemporaryDirectory() as tmp:
+            ranks, seconds[arm] = run_gloo_ranks(world, (n_model, min_features, steps, record), tmp)
+        print(f"    {arm}: {world} gloo ranks, {seconds[arm]:.1f} s with start-up")
+        hold_to_one_process(arm, ranks, ref, steps, card)
+        launches[arm] = [r["launches"] for r in ranks]
+        if n_model == 2 and min_features == 1024:
+            want = 51_984_110 - TP_SHARDED_PARAMS // 2
+            check(all(r["n_params"] == want for r in ranks),
+                  f"{arm}: each rank holds {want:,} parameters (the 13 sharded leaves' half)")
+        if record:
+            for r, res in enumerate(ranks):
+                shares = res["wgrad_shares"]
+                sliced = [s for shape, k, s in shares if shape[-1] == 2 * k]
+                worst = max(s for _, _, s in shares)
+                print(f"    {arm} rank {r}: {len(shares)} B4 launches held to the plain version, "
+                      f"{len(sliced)} on 256-column output slices of 512->512 convs; worst max "
+                      f"|diff| {worst:.3g} of max |ref| (slices {max(sliced):.3g})")
+                check(len(sliced) == 3 and worst <= WGRAD_TOL,
+                      f"{arm} rank {r}: B4 on the 3 sharded 3x3 512->512 convs' 256-column "
+                      f"slices and on every other conv within {WGRAD_TOL:g} of its plain version")
+    t0 = time.perf_counter()
+    launches["cli"] = run_tp_cli(card)
+    seconds["cli"] = time.perf_counter() - t0
+    print(f"    arms' seconds: {json.dumps({k: round(v, 1) for k, v in seconds.items()})}")
+    print(f"    phase 9j: {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def tp_launches(tp: dict, kernel: str) -> dict:
+    """One kernel's launches in each arm of phase 9j, a list by rank."""
+    return {arm: [r[kernel] for r in ranks] for arm, ranks in tp.items() if arm != "cli"} | {
+        f"cli {run}": [r[kernel] for r in ranks] for run, ranks in tp["cli"].items()
+        if run != "decode"}
 
 
 def main() -> int:
@@ -2758,6 +3120,7 @@ def main() -> int:
     fam = run_other_families(dev, card)
     serve = run_serving(dev, card, **served)
     dp = run_data_parallel(card)
+    tp = run_tensor_parallel(card, dp["one_process"])
 
     print(f"[10] done in {time.perf_counter() - t_start:.1f} s")
     source = "jpeg_detection_resnet_ssd_torch/ops/csrc/{}.cu"
@@ -2765,23 +3128,27 @@ def main() -> int:
         {"name": "batched_nms_mask", "route": "cuda", "source": source.format("batched_nms"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_nms.py:114",
          "max_abs_err": nms_err, "library_ms": None, **nms,
-         "vgg": {"launches": fam["nms_launches"]}, "serve": serve},
+         "vgg": {"launches": fam["nms_launches"]}, "serve": serve,
+         "tensor_parallel": {"launches": tp["cli"]["decode"]}},
         {"name": "bipartite_match", "route": "cuda", "source": source.format("bipartite_match"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_match.py:174",
          "max_abs_err": match_err, "library_ms": None, **train["match"],
          "vgg": {"launches": fam["launches"]["match"]},
-         "data_parallel": {"launches": [r["match"] for r in dp["launches"]]}},
+         "data_parallel": {"launches": [r["match"] for r in dp["launches"]]},
+         "tensor_parallel": {"launches": tp_launches(tp, "match")}},
         {"name": "conv3x3_filter_grad", "route": "cuda", "source": source.format("conv3x3_wgrad"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_conv_grad.py:128",
          "max_abs_err": max(wgrad_err, train["wgrad_step_err"], cls_wgrad["max_abs_err"],
                             fam["wgrad"]["max_abs_err"]),
          **train["wgrad"], "classification": cls_wgrad, "vgg": fam["wgrad"],
-         "data_parallel": {"launches": [r["wgrad"] for r in dp["launches"]]}},
+         "data_parallel": {"launches": [r["wgrad"] for r in dp["launches"]]},
+         "tensor_parallel": {"launches": tp_launches(tp, "wgrad")}},
         {"name": "dct_flip_horizontal", "route": "cuda", "source": source.format("dct_flip"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/dct_augment.py:75",
          "max_abs_err": max(flip_err, cls_flip["max_abs_err"]), "library_ms": None, **flip,
          "classification": cls_flip, "vgg": {"launches": fam["launches"]["flip"]},
-         "data_parallel": {"launches": [r["flip"] for r in dp["launches"]]}},
+         "data_parallel": {"launches": [r["flip"] for r in dp["launches"]]},
+         "tensor_parallel": {"launches": tp_launches(tp, "flip")}},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {
@@ -2792,8 +3159,10 @@ def main() -> int:
     return 0
 
 
+WORKERS = {"--dp-worker": dp_worker, "--cli-worker": cli_worker, "--tp-cli-worker": tp_cli_worker}
+
 if __name__ == "__main__":
-    if sys.argv[1:2] in (["--dp-worker"], ["--cli-worker"]):
+    if sys.argv[1:2] and sys.argv[1] in WORKERS:
         sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
-        sys.exit((dp_worker if sys.argv[1] == "--dp-worker" else cli_worker)(sys.argv[2:]))
+        sys.exit(WORKERS[sys.argv[1]](sys.argv[2:]))
     sys.exit(main())

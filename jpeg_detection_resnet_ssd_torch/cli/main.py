@@ -35,15 +35,17 @@ command's keys plus the card's name.  `--pretrained-weights` takes a local
 H5, a known short name or a URL (`compat/fetch.py`: local and `file://`
 sources, or a file pre-staged in the cache; nothing is downloaded).
 
-`train-detect` and `train-classify` train data-parallel under `torchrun`
-(one process a card, NCCL; `--device cpu` uses gloo): each rank runs on
-`cuda:{LOCAL_RANK}`, packs nothing but on rank 0, reads its shard of the
-corpus, and steps on `--batch-size // WORLD_SIZE` rows of the global batch
-(the JAX CLI hands each process a pipeline of the whole `--batch-size`,
-which its `fit` treats as the global batch; here `fit`'s global-batch
-contract holds).  Rank 0 creates the run dir and writes checkpoints and
-metrics.  What is not ported raises `NotImplementedError` naming its ROADMAP
-item: `--n-model-shards > 1` (tensor parallelism, A13b).
+`train-detect` and `train-classify` train under `torchrun` (one process a
+card, NCCL; `--device cpu` uses gloo) over a mesh of `WORLD_SIZE / n_model`
+data ranks by `--n-model-shards` model ranks (`parallel.make_mesh`,
+model-axis-minor): each rank runs on `cuda:{LOCAL_RANK}`, packs nothing but
+on rank 0, reads its data index's shard of the corpus, and steps on
+`--batch-size // n_data` rows of the global batch (the JAX CLI hands each
+process a pipeline of the whole `--batch-size`, which its `fit` treats as
+the global batch; here `fit`'s global-batch contract holds); the model axis
+shards the widest kernels (tensor parallelism).  World rank 0 creates the
+run dir and writes checkpoints (whole tensors, so `evaluate`, `export` and
+`infer` run a tensor-parallel run's checkpoint in one process) and metrics.
 """
 
 from __future__ import annotations
@@ -102,7 +104,8 @@ def _resume_or_create_run_dir(config, mesh) -> str:
     """`--restart` resumes the latest existing run of this workspace and
     project (`fit` restores its checkpoint) instead of creating a fresh dir
     whose empty checkpoints/ would train from scratch; a new run dir when
-    none exists.  Rank 0 decides and hands the path to the other ranks."""
+    none exists.  World rank 0 decides and hands the path to the other
+    ranks."""
     from jpeg_detection_resnet_ssd_torch.train.config import create_run_dir, find_latest_run
 
     run_dir = [None]
@@ -114,17 +117,18 @@ def _resume_or_create_run_dir(config, mesh) -> str:
                       file=sys.stderr)
         if run_dir[0] is None:
             run_dir[0] = create_run_dir(config)
-    if mesh.size > 1:
+    if mesh.n_data * mesh.n_model > 1:
         import torch.distributed as dist
 
-        dist.broadcast_object_list(run_dir, src=0, group=mesh.group)
+        dist.broadcast_object_list(run_dir, src=0)
     return run_dir[0]
 
 
-def _init_distributed(args):
+def _init_distributed(args, config):
     """Join `torchrun`'s process group (gloo with `--device cpu`, else NCCL)
-    when its environment is set: (mesh, device), the device
-    `cuda:{LOCAL_RANK}` for `--device cuda` under `torchrun`."""
+    when its environment is set: (mesh of `config.n_model_shards` model
+    ranks, device), the device `cuda:{LOCAL_RANK}` for `--device cuda`
+    under `torchrun`."""
     from jpeg_detection_resnet_ssd_torch.parallel import make_mesh
     from jpeg_detection_resnet_ssd_torch.utils.distributed import (
         local_rank,
@@ -135,15 +139,28 @@ def _init_distributed(args):
     device = args.device
     if device == "cuda" and "LOCAL_RANK" in os.environ:
         device = f"cuda:{local_rank()}"
-    return make_mesh(), device
+    return make_mesh(n_model=config.n_model_shards), device
 
 
 def _rank_batch_size(config, mesh) -> int:
-    """Rows a rank's pipeline yields: the global batch over the ranks."""
-    if config.batch_size % mesh.size:
+    """Rows a rank's pipeline yields: the global batch over the data ranks."""
+    if config.batch_size % mesh.n_data:
         raise SystemExit(f"--batch-size {config.batch_size} must be divisible by the "
-                         f"{mesh.size} processes")
-    return config.batch_size // mesh.size
+                         f"{mesh.n_data} data ranks")
+    return config.batch_size // mesh.n_data
+
+
+def _restore_run(config, run_dir: str, device):
+    """(trainer, module, example_inputs) of `run_dir`'s latest checkpoint
+    in this process.  A checkpoint holds whole tensors, so the run of a
+    tensor-parallel mesh restores here unsharded."""
+    from jpeg_detection_resnet_ssd_torch.parallel import make_mesh
+    from jpeg_detection_resnet_ssd_torch.train.checkpoints import CheckpointManager
+    from jpeg_detection_resnet_ssd_torch.train.loop import build_trainer
+
+    trainer, module, example_inputs = build_trainer(config, device=device, mesh=make_mesh())
+    CheckpointManager(os.path.join(run_dir, "checkpoints")).restore(trainer)
+    return trainer, module, example_inputs
 
 
 def _resolve_pretrained_source(spec: str) -> str:
@@ -238,10 +255,10 @@ def cmd_train_classify(args):
         ),
     )
     _check_device_augment_flags(args, config)
-    mesh, device = _init_distributed(args)
+    mesh, device = _init_distributed(args, config)
     rows = _rank_batch_size(config, mesh)
     full_ds = ImageFolderDataset(args.train_dir, args.class_index_json)
-    ds = full_ds.shard(mesh.rank, mesh.size)  # a pack cache covers the whole corpus
+    ds = full_ds.shard(mesh.data_index, mesh.n_data)  # a pack cache covers the whole corpus
     augment_fn = None
     if args.device_augment:
         from jpeg_detection_resnet_ssd_torch.ops import make_dct_classification_augment_v2
@@ -256,8 +273,8 @@ def cmd_train_classify(args):
             packed = load_or_create(args.pack_cache, full_ds, task="classification",
                                     img_size=256, num_workers=config.num_workers)
             pipe = PackedDctPipeline(packed, rows, train=True, seed=config.seed,
-                                     ship_dtype="int16", shard_index=mesh.rank,
-                                     shard_count=mesh.size)
+                                     ship_dtype="int16", shard_index=mesh.data_index,
+                                     shard_count=mesh.n_data)
         else:
             # The host ships the deterministic 256-px view (epoch shuffling
             # stays on); crops and flips happen in the step.
@@ -309,7 +326,7 @@ def cmd_train_detect(args):
         ),
     )
     _check_device_augment_flags(args, config)
-    mesh, device = _init_distributed(args)
+    mesh, device = _init_distributed(args, config)
     rows = _rank_batch_size(config, mesh)
     roots = args.voc_root
     full_ds = DetectionDataset.from_voc(
@@ -317,7 +334,7 @@ def cmd_train_detect(args):
         [os.path.join(r, "ImageSets", "Main", "trainval.txt") for r in roots],
         [os.path.join(r, "Annotations") for r in roots],
     )
-    ds = full_ds.shard(mesh.rank, mesh.size)  # a pack cache covers the whole corpus
+    ds = full_ds.shard(mesh.data_index, mesh.n_data)  # a pack cache covers the whole corpus
     # The anchors of the model the run trains (a `--config` may name any SSD300).
     sizes = ssd_predictor_sizes(ssd_family(config.model))
     encoder = TargetEncoder(AnchorSpec(), sizes, n_classes=20, device=device)
@@ -351,8 +368,8 @@ def cmd_train_detect(args):
                 num_workers=config.num_workers,
             )
             pipe = PackedDctPipeline(packed, rows, train=True, seed=config.seed,
-                                     ship_dtype="int16", shard_index=mesh.rank,
-                                     shard_count=mesh.size)
+                                     ship_dtype="int16", shard_index=mesh.data_index,
+                                     shard_count=mesh.n_data)
         else:
             pipe = DetectionPipeline(
                 ds, rows, train=True, encoder=encoder, augmentation=None,
@@ -437,9 +454,7 @@ def cmd_evaluate(args):
         write_voc_detection_files,
     )
     from jpeg_detection_resnet_ssd_torch.models import make_inference_fn
-    from jpeg_detection_resnet_ssd_torch.train.checkpoints import CheckpointManager
     from jpeg_detection_resnet_ssd_torch.train.config import ExperimentConfig
-    from jpeg_detection_resnet_ssd_torch.train.loop import build_trainer
 
     config = ExperimentConfig.load(os.path.join(args.run_dir, "saved_config.json"))
     if args.exported:
@@ -448,8 +463,7 @@ def cmd_evaluate(args):
         # literal reference protocol.
         infer, _ = _exported_infer(args.exported)
     else:
-        trainer, module, _ = build_trainer(config, device=args.device)
-        CheckpointManager(os.path.join(args.run_dir, "checkpoints")).restore(trainer)
+        trainer, module, _ = _restore_run(config, args.run_dir, args.device)
         module.eval()
         # mAP protocol: literal reference semantics (full per-class top-k),
         # not the faster shared candidate pool used for serving.
@@ -498,13 +512,10 @@ def cmd_evaluate_classify(args):
 
     from jpeg_detection_resnet_ssd_torch.data import ClassificationPipeline, ImageFolderDataset
     from jpeg_detection_resnet_ssd_torch.eval import ClassificationEvaluator
-    from jpeg_detection_resnet_ssd_torch.train.checkpoints import CheckpointManager
     from jpeg_detection_resnet_ssd_torch.train.config import ExperimentConfig
-    from jpeg_detection_resnet_ssd_torch.train.loop import build_trainer
 
     config = ExperimentConfig.load(os.path.join(args.run_dir, "saved_config.json"))
-    trainer, module, _ = build_trainer(config, device=args.device)
-    CheckpointManager(os.path.join(args.run_dir, "checkpoints")).restore(trainer)
+    trainer, module, _ = _restore_run(config, args.run_dir, args.device)
     module.eval()
 
     def infer(inputs):
@@ -629,13 +640,10 @@ def cmd_export(args):
     from jpeg_detection_resnet_ssd_torch.serve import build_serving_fn, export_serving_artifact
 
     if args.run_dir:
-        from jpeg_detection_resnet_ssd_torch.train.checkpoints import CheckpointManager
         from jpeg_detection_resnet_ssd_torch.train.config import ExperimentConfig
-        from jpeg_detection_resnet_ssd_torch.train.loop import build_trainer
 
         config = ExperimentConfig.load(os.path.join(args.run_dir, "saved_config.json"))
-        trainer, module, example_inputs = build_trainer(config, device=args.device)
-        CheckpointManager(os.path.join(args.run_dir, "checkpoints")).restore(trainer)
+        trainer, module, example_inputs = _restore_run(config, args.run_dir, args.device)
         model_name, task = config.model, config.task
     else:
         # Detection factories take n_classes; classification factories do

@@ -34,6 +34,7 @@ import torch
 from torch import nn
 
 from jpeg_detection_resnet_ssd_torch.models.layers import ConvTranspose, Dense
+from jpeg_detection_resnet_ssd_torch.parallel.mesh import model_shards
 
 _LEAF_NAMES = {
     "params": {"kernel": "weight", "bias": "bias", "scale": "weight", "gamma": "gamma"},
@@ -61,13 +62,38 @@ def kernel_to_torch(owner: nn.Module, kernel: np.ndarray) -> np.ndarray | None:
     return kernel.transpose(3, 2, 0, 1) if kernel.ndim == 4 else None
 
 
+def flax_kernel_axes(owner: nn.Module, ndim: int) -> tuple[int, ...]:
+    """Axis i of `owner`'s flax kernel is axis `result[i]` of its torch
+    weight of `ndim` dims (the last, flax's output features, is axis 0,
+    or 1 for a ConvTranspose)."""
+    if isinstance(owner, ConvTranspose):
+        return (2, 3, 0, 1)
+    if isinstance(owner, Dense) or ndim == 2:
+        return (1, 0)
+    return (2, 3, 1, 0)
+
+
 def kernel_to_flax(owner: nn.Module, weight: np.ndarray) -> np.ndarray:
     """The inverse of `kernel_to_torch`."""
-    if isinstance(owner, ConvTranspose):
-        return weight.transpose(2, 3, 0, 1)[::-1, ::-1]
-    if isinstance(owner, Dense):
-        return weight.T
-    return weight.transpose(2, 3, 1, 0)
+    kernel = weight.transpose(flax_kernel_axes(owner, weight.ndim))
+    return kernel[::-1, ::-1] if isinstance(owner, ConvTranspose) else kernel
+
+
+def flax_leaf_name(owner: nn.Module, name: str) -> str:
+    """The flax leaf name of `owner`'s parameter `name`: a BatchNorm's
+    `weight` is its scale, any other layer's its kernel."""
+    if name == "weight":
+        return "scale" if isinstance(owner, nn.BatchNorm2d) else "kernel"
+    return name
+
+
+def _refuse_sharded(module: nn.Module) -> None:
+    sharded = list(model_shards(module))
+    if sharded:
+        raise ValueError(f"{len(sharded)} layers hold a slice of their kernel over the model "
+                         f"axis (e.g. {sharded[0]!r}): a tensor-parallel rank's module is not "
+                         f"the whole model; save a checkpoint (it holds whole tensors) and "
+                         f"load it into a module built in one process")
 
 
 def _owner(module: nn.Module, scope) -> nn.Module | None:
@@ -111,6 +137,7 @@ def load_flax_variables(module: nn.Module, variables: Mapping) -> nn.Module:
     variables; raises on any missing, unused or mis-shaped entry.  The
     BatchNorm step counters (`num_batches_tracked`) have no flax counterpart
     and are left as they are."""
+    _refuse_sharded(module)
     arrays = _flax_to_state_dict(variables, module)
     state = module.state_dict()
     expected = {k for k in state if not k.endswith("num_batches_tracked")}
@@ -131,7 +158,9 @@ def flax_variables(module: nn.Module) -> dict:
     """`module`'s parameters and BatchNorm statistics as a flax-layout
     `{"params", "batch_stats"}` NumPy pytree: the inverse of
     `load_flax_variables` (a BatchNorm's `weight` is its scale, any other
-    layer's its kernel)."""
+    layer's its kernel).  Refuses a module whose kernels are sharded over
+    the model axis (`parallel.shard_parameters`)."""
+    _refuse_sharded(module)
     out: dict = {"params": {}, "batch_stats": {}}
     for scope_name, owner in module.named_modules():
         scope = scope_name.split(".") if scope_name else []
@@ -142,13 +171,10 @@ def flax_variables(module: nn.Module) -> dict:
             arr = tensor.detach().cpu().numpy().copy()
             if name in ("running_mean", "running_var"):
                 collection, leaf = "batch_stats", name[len("running_"):]
-            elif name == "weight" and isinstance(owner, nn.BatchNorm2d):
-                collection, leaf = "params", "scale"
-            elif name == "weight":
-                collection, leaf = "params", "kernel"
-                arr = np.ascontiguousarray(kernel_to_flax(owner, arr))
             else:
-                collection, leaf = "params", name
+                collection, leaf = "params", flax_leaf_name(owner, name)
+            if leaf == "kernel":
+                arr = np.ascontiguousarray(kernel_to_flax(owner, arr))
             node = out[collection]
             for part in scope:
                 node = node.setdefault(part, {})

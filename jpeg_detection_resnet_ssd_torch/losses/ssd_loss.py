@@ -17,9 +17,10 @@ The k largest are summed through the exact k-th largest value, found by a
 threshold share the remaining weight evenly, so value and gradient are the
 JAX package's.
 
-Inside `parallel.data_parallel(mesh)` with P > 1 ranks, each holding its
-rows of the global batch, the mining is the global batch's: the positives
-and nonzero-negative counts are all-reduced, and the threshold and the tie
+Inside `parallel.data_parallel(mesh)` with more than one data rank, each
+holding its rows of the global batch, the mining is the global batch's: the
+positives and nonzero-negative counts are all-reduced over the data group
+(a model group's ranks hold the same rows), and the threshold and the tie
 weight come from the all-gathered negative losses, so they are the ones one
 process finds on the whole batch.  Each rank's loss is its rows' share of
 the global numerator over the global positives count; the shares sum to the

@@ -36,10 +36,13 @@ statistics without moving its running statistics: the recompute of a
 checkpointed (`remat`) branch runs under it, so a branch's statistics move
 once a step, as in the JAX package, where the recompute is a pure function.
 
-Inside `parallel.data_parallel(mesh)` with P > 1 ranks, train-mode
-BatchNorm normalises with the statistics of the global batch and `Dropout`
-keeps the rank's rows of a mask drawn for the global batch, so P ranks
-compute what one process computes on the global batch (`parallel/mesh.py`).
+Inside `parallel.data_parallel(mesh)` with more than one data rank,
+train-mode BatchNorm normalises with the statistics of the global batch and
+`Dropout` keeps the data index's rows of a mask drawn for the global batch,
+so the ranks compute what one process computes on the global batch
+(`parallel/mesh.py`).  A `Conv`, `ConvTranspose` or `Dense` whose kernel
+`parallel.shard_parameters` sharded over the model axis (its `model_shard`)
+computes its output slice and gathers the model group's (`column_parallel`).
 """
 
 from __future__ import annotations
@@ -52,7 +55,14 @@ import torch.nn.functional as F
 from torch import nn
 
 from jpeg_detection_resnet_ssd_torch.ops.conv_grad import conv3x3_same_wgrad
-from jpeg_detection_resnet_ssd_torch.parallel.mesh import active_mesh, all_reduce_sum, shard_batch
+from jpeg_detection_resnet_ssd_torch.parallel.mesh import (
+    ModelShard,
+    active_mesh,
+    all_reduce_sum,
+    copy_to_model_group,
+    gather_from_model_group,
+    shard_batch,
+)
 
 BN_EPSILON = 1e-3
 BN_MOMENTUM = 0.01  # Keras momentum 0.99
@@ -118,6 +128,19 @@ def conv3x3_same(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | Non
     return nchw_to_nhwc(F.conv2d(nhwc_to_nchw(x), weight, bias, 1, 1))
 
 
+def column_parallel(layer: nn.Module, x: torch.Tensor, fn) -> torch.Tensor:
+    """`fn(x, bias)` of a layer with a `bias` (None or a Parameter, cast to
+    x's dtype).  On a layer sharded over the model axis (`layer.model_shard`)
+    `fn` computes the rank's output slice from its weight slice, and the
+    whole output is `gather(fn(copy(x), None)) + bias` (`parallel/mesh.py`)."""
+    bias = None if layer.bias is None else layer.bias.to(x.dtype)
+    shard = layer.model_shard
+    if shard is None:
+        return fn(x, bias)
+    y = gather_from_model_group(fn(copy_to_model_group(x, shard), None), shard)
+    return y if bias is None else y + bias
+
+
 def _trunc_normal_(weight: torch.Tensor, scale: float, fan_in: int, generator) -> torch.Tensor:
     """flax's variance_scaling(scale, "fan_in", "truncated_normal")."""
     std = math.sqrt(scale / fan_in) / _TRUNC_STD
@@ -153,6 +176,8 @@ class Conv(nn.Module):
     kernel is stored OIHW, torch's layout (the JAX package stores HWIO;
     `compat.flax_bridge` transposes)."""
 
+    model_shard: ModelShard | None = None
+
     def __init__(
         self,
         in_features: int,
@@ -185,7 +210,9 @@ class Conv(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        bias = None if self.bias is None else self.bias.to(x.dtype)
+        return column_parallel(self, x, self._conv)
+
+    def _conv(self, x: torch.Tensor, bias: torch.Tensor | None) -> torch.Tensor:
         if self.wgrad_eligible:
             return conv3x3_same(x, self.weight.to(x.dtype), bias)
         if self.pad is None:
@@ -216,6 +243,8 @@ class ConvTranspose(nn.Module):
     weight is stored in torch's (in, out, k, k) layout, already flipped;
     `compat.flax_bridge` flips and transposes flax's (k, k, in, out)."""
 
+    model_shard: ModelShard | None = None
+
     def __init__(self, in_features: int, features: int, kernel: int = 2, strides: int = 2,
                  padding: str = "VALID", generator: torch.Generator | None = None):
         super().__init__()
@@ -228,14 +257,15 @@ class ConvTranspose(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = F.conv_transpose2d(nhwc_to_nchw(x), self.weight.to(x.dtype), self.bias.to(x.dtype),
-                               self.stride)
-        return nchw_to_nhwc(y)
+        return column_parallel(self, x, lambda x, bias: nchw_to_nhwc(F.conv_transpose2d(
+            nhwc_to_nchw(x), self.weight.to(x.dtype), bias, self.stride)))
 
 
 class Dense(nn.Module):
     """flax's `nn.Dense`: lecun_normal kernel (truncated, fan_in = in), zero
     bias.  The weight is torch's (out, in); flax's kernel is (in, out)."""
+
+    model_shard: ModelShard | None = None
 
     def __init__(self, in_features: int, features: int, generator: torch.Generator | None = None):
         super().__init__()
@@ -244,7 +274,7 @@ class Dense(nn.Module):
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight.to(x.dtype), self.bias.to(x.dtype))
+        return column_parallel(self, x, lambda x, bias: F.linear(x, self.weight.to(x.dtype), bias))
 
 
 def dropout_mask(shape, keep_prob: float, generator: torch.Generator) -> torch.Tensor:
@@ -272,8 +302,8 @@ class Dropout(nn.Module):
         mesh = active_mesh()
         if mesh is None:
             mask = dropout_mask(tuple(x.shape), keep_prob, _DROPOUT_GENERATOR)
-        else:  # the rank's rows of the global batch's mask
-            shape = (x.shape[0] * mesh.size, *x.shape[1:])
+        else:  # the data index's rows of the global batch's mask
+            shape = (x.shape[0] * mesh.n_data, *x.shape[1:])
             mask = shard_batch(dropout_mask(shape, keep_prob, _DROPOUT_GENERATOR), mesh)
         mask = mask.to(x.device)
         return torch.where(mask, x / keep_prob, torch.zeros((), dtype=x.dtype, device=x.device))
@@ -292,10 +322,11 @@ class BatchNorm(nn.BatchNorm2d):
     1 / num_batches_tracked).  Eval mode normalises with the running
     statistics.  Both return the input's dtype.
 
-    Inside `parallel.data_parallel` with P > 1 ranks the train-mode
-    statistics are the global batch's: the sums of x and x^2 and the row
-    count are all-reduced with autograd, so the gradient flows through them,
-    and every rank moves its running statistics by the same values.  The
+    Inside `parallel.data_parallel` with more than one data rank the
+    train-mode statistics are the global batch's: the sums of x and x^2 and
+    the row count are all-reduced over the data group with autograd, so the
+    gradient flows through them, and every rank moves its running
+    statistics by the same values.  The
     mean is sum / count there, where one process takes `mean()`, so the two
     differ by float32 rounding only."""
 

@@ -126,13 +126,17 @@ class _SSDHead(nn.Module):
         confs, locs = [], []
         for (conf_name, loc_name), src in zip(self._names, sources):
             conf, loc = self._modules[conf_name], self._modules[loc_name]
-            n_conf = conf.weight.shape[0]
-            weight = torch.cat([conf.weight, loc.weight], dim=0).to(src.dtype)
-            bias = torch.cat([conf.bias, loc.bias], dim=0).to(src.dtype)
-            # With the switch on, dW flows back through the cat to both groups.
-            out = layers.conv3x3_same(src, weight, bias)
-            confs.append(out[..., :n_conf].reshape(batch, -1, n_total))
-            locs.append(out[..., n_conf:].reshape(batch, -1, 4))
+            if conf.model_shard is None and loc.model_shard is None:
+                n_conf = conf.weight.shape[0]
+                weight = torch.cat([conf.weight, loc.weight], dim=0).to(src.dtype)
+                bias = torch.cat([conf.bias, loc.bias], dim=0).to(src.dtype)
+                # With the switch on, dW flows back through the cat to both groups.
+                out = layers.conv3x3_same(src, weight, bias)
+                conf_out, loc_out = out[..., :n_conf], out[..., n_conf:]
+            else:  # a kernel sharded over the model axis: each conv gathers its own
+                conf_out, loc_out = conf(src), loc(src)
+            confs.append(conf_out.reshape(batch, -1, n_total))
+            locs.append(loc_out.reshape(batch, -1, 4))
         mbox_conf = torch.cat(confs, dim=1)
         mbox_loc = torch.cat(locs, dim=1)
         sizes = [tuple(s.shape[1:3]) for s in sources]
@@ -152,8 +156,11 @@ class _FC6CenterTap(nn.Module):
 
     The off-center taps then always read the zero padding, so the conv
     equals its center-tap 1x1 conv at 1/9 the FLOPs.  The full (3,3) kernel
-    is still owned, so the parameters match the reference's fc6.
+    is still owned, so the parameters match the reference's fc6; sharded
+    over the model axis, the rank's kernel slice gives its center tap.
     """
+
+    model_shard: layers.ModelShard | None = None
 
     def __init__(self, in_features: int, features: int, dilation: int,
                  generator: torch.Generator | None = None):
@@ -168,8 +175,8 @@ class _FC6CenterTap(nn.Module):
                 f"center-tap rewrite invalid: map {x.shape[1]}x{x.shape[2]} vs "
                 f"dilation {self.dilation}"
             )
-        weight = self.weight[:, :, 1:2, 1:2].to(x.dtype)
-        return nchw_to_nhwc(F.conv2d(nhwc_to_nchw(x), weight, self.bias.to(x.dtype)))
+        return layers.column_parallel(self, x, lambda x, bias: nchw_to_nhwc(F.conv2d(
+            nhwc_to_nchw(x), self.weight[:, :, 1:2, 1:2].to(x.dtype), bias)))
 
 
 class _SSDNeckMixin(ResNetBlocks):

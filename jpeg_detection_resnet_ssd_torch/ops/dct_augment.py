@@ -305,9 +305,10 @@ class DeviceAugment:
     draws)` runs the chain on the batch's device.  A call moves the batch's
     "inputs" to `device` (a CPU batch does not quietly run the chain on the
     CPU), copies the draws there at once and applies.  Inside
-    `parallel.data_parallel(mesh)` with P > 1 ranks the batch is the rank's
-    rows: the draws are made for the global batch of P times its rows and
-    the rank keeps its own, so P ranks draw what one process draws."""
+    `parallel.data_parallel(mesh)` with n_data > 1 data ranks the batch is
+    the rank's rows: the draws are made for the global batch of n_data times
+    its rows and the rank keeps its data index's, so the ranks draw what one
+    process draws (both ranks of a model group the same)."""
 
     sample: Callable[..., dict]
     apply: Callable[[dict, dict], dict]
@@ -325,7 +326,7 @@ class DeviceAugment:
         if mesh is None:
             draws = self.sample(b, h8, w8, generator)
         else:
-            draws = shard_batch(self.sample(b * mesh.size, h8, w8, generator), mesh)
+            draws = shard_batch(self.sample(b * mesh.n_data, h8, w8, generator), mesh)
         return self.apply(batch, _draws.to_device(draws, self.device))
 
 

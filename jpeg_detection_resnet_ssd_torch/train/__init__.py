@@ -1,6 +1,10 @@
 """Training: the train step, SGD, schedules, checkpoints and the loop (torch)."""
 
-from jpeg_detection_resnet_ssd_torch.train.checkpoints import CheckpointManager, CSVLogger
+from jpeg_detection_resnet_ssd_torch.train.checkpoints import (
+    CheckpointManager,
+    CSVLogger,
+    checkpoint_state,
+)
 from jpeg_detection_resnet_ssd_torch.train.config import ExperimentConfig
 from jpeg_detection_resnet_ssd_torch.train.loop import (
     BF16MomentumSGD,
@@ -28,6 +32,7 @@ __all__ = [
     "BF16MomentumSGD",
     "CSVLogger",
     "CheckpointManager",
+    "checkpoint_state",
     "ExperimentConfig",
     "MetricWriter",
     "NaNLossError",

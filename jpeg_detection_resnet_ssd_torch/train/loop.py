@@ -3,11 +3,11 @@
 Counterpart of the JAX package's `train/loop.py` (`build_optimizer`,
 `build_trainer`, `fit`, `make_validation_fn`), for the detection and the
 classification task, with the memory levers `momentum_dtype="bfloat16"`
-and `remat`, on one device or data-parallel over the ranks of a
-`parallel.make_mesh()` mesh: `config.batch_size` is the global batch, each
-rank trains on its rows, and the step is the single-process step on the
-global batch (`train/trainer.py`).  Tensor parallelism (`n_model_shards >
-1`) is not ported yet and raises `NotImplementedError` naming ROADMAP A13b.
+and `remat`, on one device or over the ranks of a `parallel.make_mesh(
+n_model=config.n_model_shards)` mesh: `config.batch_size` is the global
+batch, each data rank trains on its rows, the model axis shards the widest
+kernels (`parallel.shard_parameters`), and the step is the single-process
+step on the global batch (`train/trainer.py`).
 """
 
 from __future__ import annotations
@@ -22,8 +22,14 @@ import torch
 from jpeg_detection_resnet_ssd_torch.compat import load_flax_variables
 from jpeg_detection_resnet_ssd_torch.losses import SSDLoss
 from jpeg_detection_resnet_ssd_torch.models import build_model
-from jpeg_detection_resnet_ssd_torch.parallel.mesh import Mesh, barrier, make_mesh
-from jpeg_detection_resnet_ssd_torch.train.checkpoints import CheckpointManager
+from jpeg_detection_resnet_ssd_torch.parallel.mesh import (
+    Mesh,
+    barrier,
+    make_mesh,
+    shard_parameters,
+    tensor_parallel_rule,
+)
+from jpeg_detection_resnet_ssd_torch.train.checkpoints import CheckpointManager, checkpoint_state
 from jpeg_detection_resnet_ssd_torch.train.config import ExperimentConfig
 from jpeg_detection_resnet_ssd_torch.train.metrics import MetricWriter
 from jpeg_detection_resnet_ssd_torch.train.schedules import (
@@ -114,22 +120,24 @@ def build_optimizer(config: ExperimentConfig, params, n_replicas: int = 1) -> to
 
 
 def build_trainer(config: ExperimentConfig, target_encoder=None, augment_fn=None,
-                  device: str | torch.device | None = None, mesh: Mesh | None = None):
+                  device: str | torch.device | None = None, mesh: Mesh | None = None,
+                  init_variables=None, tp_rule=tensor_parallel_rule):
     """(Trainer, module, example_inputs) for `config` on `device` (None means
-    CUDA and raises without a card), data-parallel over `mesh` (None:
-    `make_mesh()`, one rank without a process group), whose rank count
-    scales the warmup schedule.  Weights (the same on every rank) are the port's init from
-    `torch.Generator` seeded `config.seed`.  `config.model` is any registry
-    name.  The detection task trains with the SSD loss and the selective L2
-    penalty (the kernels of the neck and head layers of every SSD family,
+    CUDA and raises without a card) over `mesh` (None: `make_mesh(n_model=
+    config.n_model_shards)`, one rank without a process group), whose data
+    axis scales the warmup schedule.  Weights (the same on every rank) are
+    the port's init from `torch.Generator` seeded `config.seed`, or the
+    flax-layout NumPy `init_variables` (`compat.load_flax_variables`),
+    loaded while the model is whole; then a model axis shards the kernels
+    `tp_rule` claims (`parallel.shard_parameters`), and the optimizer is
+    built over the slices.  `config.model` is any registry name.  The
+    detection task trains with the SSD loss and the selective L2 penalty
+    (the kernels of the neck and head layers of every SSD family,
     `losses.default_ssd_reg_filter`); the classification task with the
     cross-entropy and top-1/top-5 metrics, no L2 term (as in the JAX
     package)."""
     dev = resolve_device(device)
-    if config.n_model_shards > 1:
-        raise NotImplementedError(
-            "n_model_shards > 1 (tensor parallelism) is not ported to PyTorch yet (ROADMAP A13b)")
-    mesh = mesh if mesh is not None else make_mesh()
+    mesh = mesh if mesh is not None else make_mesh(n_model=config.n_model_shards)
     if config.task not in ("detection", "classification"):
         raise ValueError(f"unknown task {config.task!r}")
     model_kwargs = dict(config.model_kwargs)
@@ -140,6 +148,9 @@ def build_trainer(config: ExperimentConfig, target_encoder=None, augment_fn=None
         config.model, device=dev, generator=torch.Generator().manual_seed(config.seed),
         **model_kwargs,
     )
+    if init_variables is not None:
+        load_flax_variables(module, init_variables)
+    shard_parameters(module, mesh, tp_rule)
     if config.task == "detection":
         loss_fn = detection_loss_fn(SSDLoss(), l2_scale=config.l2_regularization)
     else:
@@ -147,8 +158,8 @@ def build_trainer(config: ExperimentConfig, target_encoder=None, augment_fn=None
     trainer = Trainer(
         model=module,
         loss_fn=loss_fn,
-        optimizer=build_optimizer(config, module.parameters(), mesh.size),
-        schedule=_make_schedule(config, mesh.size),
+        optimizer=build_optimizer(config, module.parameters(), mesh.n_data),
+        schedule=_make_schedule(config, mesh.n_data),
         target_encoder=target_encoder,
         augment_fn=augment_fn,
         freeze_bn=config.freeze_bn,
@@ -173,6 +184,7 @@ def fit(
     device: str | torch.device | None = None,
     steps_per_call: int = 1,
     mesh: Mesh | None = None,
+    tp_rule=tensor_parallel_rule,
 ) -> tuple[Trainer, list[dict]]:
     """Train per `config`; returns (trainer, one history row per epoch).
 
@@ -194,20 +206,22 @@ def fit(
     `max_steps`, the remainder runs as single steps, and the steps draw what
     single steps draw, so the run is the same whatever the group size.
 
-    With a `mesh` of P ranks (None: `make_mesh()`) `config.batch_size` is
-    the global batch, which P must divide, and `train_pipeline` yields this
-    rank's rows (`parallel.shard_batch` of a global batch, or a pipeline of
-    `batch_size // P` rows a rank).  Every rank restores the checkpoint;
-    rank 0 alone writes checkpoints and metric rows, and every rank waits
-    for each checkpoint.
+    With a `mesh` (None: `make_mesh(n_model=config.n_model_shards)`)
+    `config.batch_size` is the global batch, which the data axis's n_data
+    must divide, and `train_pipeline` yields this rank's rows
+    (`parallel.shard_batch` of a global batch, or a pipeline of `batch_size
+    // n_data` rows a rank, the same on the ranks of a model group); the
+    model axis shards the kernels `tp_rule` claims (`build_trainer`).
+    Every rank restores the checkpoint (its slices of the whole tensors);
+    every rank gathers each checkpoint's state, world rank 0 alone writes
+    it and the metric rows, and every rank waits for each checkpoint.
     """
-    trainer, module, _ = build_trainer(config, target_encoder, augment_fn, device, mesh)
+    trainer, _, _ = build_trainer(config, target_encoder, augment_fn, device, mesh,
+                                  init_variables, tp_rule)
     mesh = trainer.mesh
-    if config.batch_size % mesh.size:
+    if config.batch_size % mesh.n_data:
         raise ValueError(f"global batch_size {config.batch_size} must be divisible by the "
-                         f"mesh data axis ({mesh.size} shards)")
-    if init_variables is not None:
-        load_flax_variables(module, init_variables)
+                         f"mesh data axis ({mesh.n_data} shards)")
 
     primary = mesh.rank == 0
     writer = MetricWriter(run_dir if primary else None, tensorboard=config.tensorboard)
@@ -267,7 +281,7 @@ def fit(
             "epoch": epoch,
             "step": trainer.step,
             "time_s": round(time.time() - t0, 2),
-            "lr": _schedule_value(config, trainer.step, mesh.size),
+            "lr": _schedule_value(config, trainer.step, mesh.n_data),
         }
         for k, v in epoch_metrics.items():
             row[k] = float(torch.cat(v).double().mean())
@@ -280,8 +294,9 @@ def fit(
         done = bool(max_steps) and steps_done >= max_steps
         if ckpt is not None and ((epoch + 1) % max(save_every, 1) == 0
                                  or epoch == config.epochs - 1 or done):
+            state = checkpoint_state(trainer)
             if primary:
-                ckpt.save(trainer.step, trainer)
+                ckpt.save(trainer.step, trainer, state)
             barrier(mesh)
         if done:
             break

@@ -21,18 +21,30 @@ Step s of a run seeded `seed` draws from `step_generator(seed, s)` and
 `train_steps`.  With `freeze_bn` the forward is in eval mode, so dropout is
 off too, as in the JAX package.
 
-With a `mesh` of P > 1 ranks (`parallel.make_mesh`), each rank steps on its
-rows of the global batch and the step is the single-process step on the
-global batch: the step runs inside `parallel.data_parallel(mesh)`, so
-BatchNorm, the SSD loss's mining, the augment's draws and dropout are
-global, and each rank's loss is its share of the global loss (the shares
-sum to it).  The gradient scale: backward of a rank's share gives that
-share's gradient (the BatchNorm all-reduce hands every rank the global
-statistics' gradient), so the parameter gradients are SUMMED over the
-ranks, not averaged, and each update equals the single-process update.
-The L2 penalty is added on rank 0 only, so the sum counts it once.  The
-reported metrics are summed the same way, so every rank reads the global
-values; the ranks' parameters stay bit-identical.
+With a `mesh` of more than one data rank (`parallel.make_mesh`), each rank
+steps on its rows of the global batch and the step is the single-process
+step on the global batch: the step runs inside
+`parallel.data_parallel(mesh)`, so BatchNorm, the SSD loss's mining, the
+augment's draws and dropout are global, and each rank's loss is its share
+of the global loss (the shares sum to it).  The gradient scale: backward of
+a rank's share gives that share's gradient (the BatchNorm all-reduce hands
+every rank the global statistics' gradient), so the parameter gradients are
+SUMMED over the data group, not averaged, and each update equals the
+single-process update.  The L2 penalty is added on data index 0 only, so
+the sum counts it once.  The reported metrics are summed the same way, so
+every rank reads the global values; the ranks' parameters stay
+bit-identical.
+
+With a model axis (the model's widest kernels sharded by
+`parallel.shard_parameters`, the optimizer built after), the ranks of a
+model group hold the same rows and compute the same loss; a sharded kernel
+gets the gradient of its slice, a replicated one the same gradient on each
+(model index 0's, broadcast over the model group, so the replicas stay
+bit-identical), and the SGD momentum of a slice is the slice's.  Each rank
+of data index 0 adds the penalty of the replicated kernels and of its own
+slices, so each gradient is right; the reported `reg` and `total_loss`
+count every slice once (its share summed over the model group), so they
+are one process's and the same on every rank.
 """
 
 from __future__ import annotations
@@ -46,6 +58,7 @@ from torch import nn
 from jpeg_detection_resnet_ssd_torch.losses import (
     SSDLoss,
     l2_regularization_loss,
+    regularized_parameters,
     softmax_cross_entropy,
     top_k_accuracy,
 )
@@ -55,7 +68,10 @@ from jpeg_detection_resnet_ssd_torch.parallel.mesh import (
     active_mesh,
     all_reduce_gradients,
     all_reduce_sum,
+    broadcast_replicated_gradients,
     data_parallel,
+    model_shards,
+    model_sum,
 )
 from jpeg_detection_resnet_ssd_torch.utils.device import resolve_device
 
@@ -95,19 +111,45 @@ def dropout_step_generator(seed: int, step: int) -> torch.Generator:
     return torch.Generator().manual_seed(_splitmix64(word ^ _DROPOUT_SALT))
 
 
+def _l2_penalty(model: nn.Module, scale: float) -> tuple[torch.Tensor, torch.Tensor]:
+    """(penalty in this rank's loss, penalty reported) of the selective L2
+    term.  Without sharded kernels both are `l2_regularization_loss`; with
+    kernels sharded over the model axis, the first counts the replicated
+    kernels and this rank's slices (each gradient is then right), the
+    second the replicated kernels and every slice once (one process's
+    value, the same on every rank of the model group)."""
+    shards = {id(model.get_parameter(k)): s for k, s in model_shards(model).items()}
+    if not shards:
+        reg = l2_regularization_loss(model, scale)
+        return reg, reg
+    replicated, own, shard = [], [], None
+    for _, p in regularized_parameters(model):
+        if id(p) in shards:
+            own.append(scale * p.square().sum())
+            shard = shards[id(p)]
+        else:
+            replicated.append(scale * p.square().sum())
+    rep = torch.stack(replicated).sum() if replicated else torch.zeros(
+        (), device=next(model.parameters()).device)
+    if not own:
+        return rep, rep
+    mine = torch.stack(own).sum()
+    return rep + mine, rep.detach() + model_sum(mine, shard)
+
+
 def detection_loss_fn(ssd_loss: SSDLoss = SSDLoss(), l2_scale: float = 5e-4):
     """(model, outputs, batch) -> (loss, metrics) for SSD training:
     `ssd_loss` on batch["targets"] plus the selective L2 penalty (under data
-    parallelism: the rank's share of both, the penalty on rank 0)."""
+    parallelism: the rank's share of both, the penalty on data index 0;
+    with kernels sharded over the model axis see `_l2_penalty`)."""
 
     def fn(model, outputs, batch):
         loss = ssd_loss(batch["targets"], outputs)
         mesh = active_mesh()
-        if l2_scale and (mesh is None or mesh.rank == 0):
-            reg = l2_regularization_loss(model, l2_scale)
-        else:
-            reg = torch.zeros((), device=loss.device)
-        return loss + reg, {"loss": loss, "reg": reg}
+        if not l2_scale or (mesh is not None and mesh.data_index != 0):
+            return loss, {"loss": loss, "reg": torch.zeros((), device=loss.device)}
+        reg, reported = _l2_penalty(model, l2_scale)
+        return loss + reg, {"loss": loss, "reg": reported, "total_loss": loss + reported}
 
     return fn
 
@@ -116,7 +158,7 @@ def classification_loss_fn():
     """(model, logits, batch) -> (loss, metrics) for classification:
     `softmax_cross_entropy` on one-hot batch["labels"], no penalty term;
     metrics loss, top1, top5 (under data parallelism each the rank's share
-    of the global batch's mean: its rows' mean over P)."""
+    of the global batch's mean: its rows' mean over the data ranks)."""
 
     def fn(model, outputs, batch):
         labels = batch["labels"]
@@ -128,7 +170,7 @@ def classification_loss_fn():
         }
         mesh = active_mesh()
         if mesh is not None:
-            metrics = {k: v / mesh.size for k, v in metrics.items()}
+            metrics = {k: v / mesh.n_data for k, v in metrics.items()}
         return metrics["loss"], metrics
 
     return fn
@@ -149,7 +191,8 @@ class Trainer:
         padded GT instead of "targets".
       augment_fn: (batch, generator) -> batch, before the encoder.
       device: where the step runs; None means CUDA and raises without a card.
-      mesh: the data-parallel ranks (None: this process alone).
+      mesh: the (data, model) mesh (None: this process alone); the model's
+        kernels are sharded over its model axis before the Trainer is made.
     """
 
     model: nn.Module
@@ -182,7 +225,7 @@ class Trainer:
         (reading them synchronises, so the loop reads them rarely).
         `generator` goes to the augment hook, `dropout_generator` to the
         model's train-mode dropout (a model with dropout needs one).  With a
-        mesh, `batch` is this rank's rows of the global batch."""
+        mesh, `batch` is this rank's data index's rows of the global batch."""
         with data_parallel(self.mesh):
             return self._train_step(batch, generator, dropout_generator)
 
@@ -205,13 +248,15 @@ class Trainer:
         loss, metrics = self.loss_fn(self.model, outputs, batch)
         self.optimizer.zero_grad(set_to_none=True)
         loss.backward()
-        metrics = {**{k: v.detach() for k, v in metrics.items()}, "total_loss": loss.detach()}
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        metrics.setdefault("total_loss", loss.detach())
         mesh = active_mesh()
         if mesh is not None:  # shares -> global sums (see the module docstring)
             all_reduce_gradients(self.model.parameters(), mesh)
             names = list(metrics)
             summed = all_reduce_sum(torch.stack([metrics[k].float() for k in names]), mesh)
             metrics = {k: summed[i].to(metrics[k].dtype) for i, k in enumerate(names)}
+        broadcast_replicated_gradients(self.model)
         if self.schedule is not None:
             lr = float(self.schedule(self.step))
             for group in self.optimizer.param_groups:

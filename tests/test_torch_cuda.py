@@ -497,3 +497,36 @@ def test_two_gloo_ranks_on_one_card_equal_one_process(cuda, tmp_path):
         if want.is_floating_point():
             assert float((got[0] - want).abs().max()) <= 1e-3 * largest, key
 
+
+
+@pytest.mark.parametrize("min_features", [1024, 512])
+def test_two_model_ranks_on_one_card_equal_one_process(cuda, tmp_path, min_features):
+    """The tensor-parallel step on the card: two gloo ranks of a 1x2 mesh
+    take one f32 step of `ssd300_ssd_custom` with B2, B3 and B4 on the
+    whole global batch of 8, the kernels of at least `min_features` outputs
+    sharded (at 512 B4 takes stage 5's 3x3 convs on 256-column output
+    slices); one process is the reference, held as the data-parallel step
+    is, and the ranks' gathered states are bit-identical."""
+    import torch_dp_worker as worker
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    kw = dict(device="cuda", pallas_wgrad=True, global_batch=8, steps=1)
+    procs = []
+    try:
+        results = worker.run_ranks("ssd_custom", str(tmp_path), procs, timeout=300, n_model=2,
+                                   min_features=min_features, **kw)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+    ref = worker.ssd_custom_step(**kw)
+    loss = ref["metrics"]["total_loss"]
+    largest = max(float(v.abs().max()) for v in ref["state"].values() if v.is_floating_point())
+    for r in results:
+        assert float((r["metrics"]["total_loss"] - loss).abs().max()) <= 1e-4 * float(loss.abs().max())
+        assert r["n_params"] < ref["n_params"]
+    for key, want in ref["state"].items():
+        got = [r["state"][key] for r in results]
+        assert torch.equal(got[0], got[1]), key
+        if want.is_floating_point():
+            assert float((got[0] - want).abs().max()) <= 1e-3 * largest, key

@@ -10,11 +10,8 @@ bit-identical to each other.  The warmup schedule and the tensor-parallel
 rule are compared with the JAX package's.
 """
 
-import json
 import os
 import shutil
-import socket
-import subprocess
 import sys
 from pathlib import Path
 
@@ -47,7 +44,6 @@ from jpeg_detection_resnet_ssd_torch.utils import (
 )
 
 TOL = 1e-5
-REPO = Path(__file__).resolve().parent.parent
 
 
 @pytest.fixture(autouse=True, scope="module")
@@ -215,7 +211,7 @@ def test_single_process_path_is_unchanged():
     """Without a process group the mesh is one rank, the reductions are the
     single-process code, and `fit` is bit-identical with or without a mesh."""
     mesh = make_mesh()
-    assert (mesh.shape, mesh.rank, mesh.group) == ({"data": 1, "model": 1}, 0, None)
+    assert (mesh.shape, mesh.rank, mesh.data_group) == ({"data": 1, "model": 1}, 0, None)
     with data_parallel(mesh):
         assert active_mesh() is None
     with data_parallel(Mesh({"data": 2, "model": 1}, 1, None)):
@@ -225,8 +221,8 @@ def test_single_process_path_is_unchanged():
     assert maybe_initialize_distributed() is False
     with pytest.raises(ValueError, match="2x1 != 1 processes"):
         make_mesh(n_data=2)
-    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
-        make_mesh(n_model=2)
+    with pytest.raises(ValueError, match="0x2 != 1 processes"):
+        make_mesh(n_model=2)  # a 1x2 mesh needs two processes
     flat = torch.tensor([3.0, 1.0, 1.0, 1.0, 0.0, 2.0])
     assert torch.equal(top_k_sum(flat, torch.tensor(3.0), flat), top_k_sum(flat, torch.tensor(3.0)))
     rows = shard_batch({"x": np.arange(8).reshape(4, 2), "t": (torch.arange(4),), "n": 3},
@@ -272,7 +268,7 @@ def test_train_detect_cli_on_two_gloo_ranks(tmp_path):
             "--steps-per-epoch", "2", "--output-dir", str(tmp_path / "exp"), "--device", "cpu"]
     outs = []
     try:
-        _run_cli_ranks(argv, tmp_path, outs)
+        worker.run_cli_ranks(argv, tmp_path, outs)
         (run_dir, first), (again, second) = outs
         assert again == run_dir and (first["step"], second["step"]) == (2, 4)
         assert np.isfinite(first["total_loss"]) and np.isfinite(second["total_loss"])
@@ -280,31 +276,3 @@ def test_train_detect_cli_on_two_gloo_ranks(tmp_path):
         assert sorted(os.listdir(ckpts)) == ["ckpt_00000002.pt", "ckpt_00000004.pt"]
     finally:  # ~0.4 GB a checkpoint
         shutil.rmtree(tmp_path / "exp", ignore_errors=True)
-
-
-def _run_cli_ranks(argv, tmp_path, outs):
-    """The first run and its restart, two ranks each; appends rank 0's
-    (run dir line, last row) to `outs`."""
-    for extra in (["--epochs", "1"], ["--epochs", "2", "--restart"]):
-        with socket.socket() as s:
-            s.bind(("localhost", 0))
-            port = s.getsockname()[1]
-        procs = [subprocess.Popen(argv + extra, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                                  text=True, cwd=str(tmp_path),
-                                  env=dict(os.environ, RANK=str(r), WORLD_SIZE="2",
-                                           LOCAL_RANK=str(r), MASTER_ADDR="localhost",
-                                           MASTER_PORT=str(port), OMP_NUM_THREADS="1",
-                                           PYTHONPATH=str(REPO)))
-                 for r in range(2)]
-        try:
-            done = [p.communicate(timeout=120) for p in procs]
-        finally:
-            for p in procs:
-                if p.poll() is None:
-                    p.kill()
-                    p.wait(timeout=10)
-        for r, (p, (out, err)) in enumerate(zip(procs, done)):
-            assert p.returncode == 0, f"rank {r}:\n{err[-3000:]}"
-        assert done[1][0].strip() == ""  # rank 1 prints nothing
-        lines = done[0][0].strip().splitlines()
-        outs.append((lines[0], json.loads(lines[-1])))

@@ -182,9 +182,11 @@ def test_fit_nan_guard(tmp_path):
 
 
 def test_what_is_not_ported_names_its_roadmap_item():
-    """Tensor parallelism (A13b) still raises; the VGG classifiers (A12b),
-    the memory levers (A15) and the classification task (A12a) build."""
-    with pytest.raises(NotImplementedError, match="ROADMAP A13b"):
+    """Tensor parallelism (A13b) is ported: in one process a 1x2 mesh
+    raises (two model ranks need two processes); the VGG classifiers
+    (A12b), the memory levers (A15) and the classification task (A12a)
+    build."""
+    with pytest.raises(ValueError, match="mesh 0x2 != 1 processes"):
         build_trainer(ExperimentConfig(n_model_shards=2), device="cpu")
     _, vgg, _ = build_trainer(ExperimentConfig(model="vgga", task="classification",
                                                model_kwargs={"num_classes": 7}), device="cpu")

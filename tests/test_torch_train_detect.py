@@ -182,13 +182,15 @@ def test_device_augment_flag_errors(setup, extra, message):
 
 
 @pytest.mark.parametrize("extra,error,match", [
-    (["--n-model-shards", "2"], NotImplementedError, "ROADMAP A13b"),
+    (["--n-model-shards", "2"], ValueError, "mesh 0x2 != 1 processes"),
     (["--pretrained-weights", "https://example.invalid/w.h5"], OSError,
      "pre-stage the file at"),
     (["--pretrained-weights", "ssd300_voc07"], FileNotFoundError, "ssd300_voc07"),
 ], ids=["extra0-A13", "extra1-A14", "extra2-A14"])
 def test_what_is_not_ported_names_its_roadmap_item(setup, extra, error, match, monkeypatch):
-    """Only tensor parallelism (A13b) is left unported.  A URL is served
+    """Tensor parallelism (A13b) is ported: `--n-model-shards 2` in one
+    process asks for a 1x2 mesh of one process, which raises (it runs under
+    `torchrun`, `tests/test_torch_tensor_parallel.py`).  A URL is served
     from the weight cache or refused with the path to pre-stage (nothing is
     downloaded); a name that is neither a known checkpoint nor a file fails
     as the JAX CLI's `_resolve_pretrained_source` makes it fail: it is taken

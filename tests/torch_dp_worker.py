@@ -1,10 +1,12 @@
-"""Data-parallel cases of the PyTorch port, one rank a process.
+"""Data- and tensor-parallel cases of the PyTorch port, one rank a process.
 
     python tests/torch_dp_worker.py CASE RANK WORLD STORE OUT [JSON_KWARGS]
 
 joins a gloo group of WORLD ranks through the file store STORE (no port to
 collide on), runs `CASES[CASE](**kwargs)` on its rows of the global batch
-and `torch.save`s the result to `OUT.RANK`.  The tests call the same case
+(with `n_model` > 1, on a mesh of WORLD / n_model data ranks whose model
+axis shards the kernels of at least `min_features` outputs) and
+`torch.save`s the result to `OUT.RANK`.  The tests call the same case
 functions in their own process, without a process group, for the
 single-process reference on the global batch.  NumPy, torch and the port
 only (no jax), so the card-only tests can start these workers too.
@@ -14,9 +16,13 @@ from __future__ import annotations
 
 import contextlib
 import datetime
+import functools
 import json
 import os
+import socket
+import subprocess
 import sys
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -29,15 +35,21 @@ from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder  # n
 from jpeg_detection_resnet_ssd_torch.losses import SSDLoss  # noqa: E402
 from jpeg_detection_resnet_ssd_torch.models import layers  # noqa: E402
 from jpeg_detection_resnet_ssd_torch.models.zoo import MODEL_REGISTRY, RegistryEntry  # noqa: E402
+from jpeg_detection_resnet_ssd_torch.models.ssd import _FC6CenterTap  # noqa: E402
 from jpeg_detection_resnet_ssd_torch.parallel import (  # noqa: E402
     data_parallel,
     make_mesh,
+    model_shards,
     shard_batch,
+    shard_parameters,
+    tensor_parallel_rule,
 )
 from jpeg_detection_resnet_ssd_torch.train import (  # noqa: E402
+    BF16MomentumSGD,
     ExperimentConfig,
     Trainer,
     build_trainer,
+    checkpoint_state,
     classification_loss_fn,
     detection_loss_fn,
     fit,
@@ -50,6 +62,7 @@ from jpeg_detection_resnet_ssd_torch.utils import (  # noqa: E402
 )
 
 TIMEOUT = datetime.timedelta(seconds=60)
+REPO = Path(__file__).resolve().parent.parent
 
 # The tiny detector's anchors: 64-px frames, two predictor maps (8x8, 4x4).
 TINY_SPEC = AnchorSpec(img_height=64, img_width=64, scales=[0.2, 0.5, 0.9],
@@ -90,6 +103,59 @@ class TinySSD(nn.Module):
         return torch.cat([scores, out[..., self.n_classes + 1:].float(), pad], -1)
 
 
+class TinyTPSSD(nn.Module):
+    """`TinySSD`'s layout with an SSD neck's `fc6` (`_FC6CenterTap`, 32
+    outputs, on the 4x4 map) before the second head, and 32-wide Y convs:
+    at `min_features=32` the B4-eligible 3x3 `conv_y`, `fc6` and both heads
+    are sharded over the model axis while `conv_c` and `conv6_2` stay
+    replicated (the L2 penalty takes `fc6`, `conv6_2` and the heads)."""
+
+    def __init__(self, dtype=torch.float32, generator=None, n_classes=N_CLASSES):
+        super().__init__()
+        self.dtype, self.n_classes = dtype, n_classes
+        g = generator
+        self.conv_y = layers.Conv(64, 32, 3, generator=g)
+        self.bn_y = layers.BatchNorm(32)
+        self.conv_c = layers.Conv(128, 16, 1, generator=g)
+        self.bn_c = layers.BatchNorm(16)
+        self.conv6_2 = layers.Conv(48, 16, 3, strides=2, generator=g)
+        self.bn_b = layers.BatchNorm(16)
+        self.fc6 = _FC6CenterTap(16, 32, dilation=6, generator=g)
+        self.a_mbox_pred = layers.Conv(32, 4 * (n_classes + 5), 3, generator=g)
+        self.b_mbox_pred = layers.Conv(32, 4 * (n_classes + 5), 3, generator=g)
+
+    def forward(self, inputs):
+        y, cbcr = (x.to(self.dtype) / 100 for x in inputs)
+        a = torch.relu(self.bn_y(self.conv_y(y)))
+        c = layers.upsample2x(torch.relu(self.bn_c(self.conv_c(cbcr))))
+        b = torch.relu(self.fc6(torch.relu(self.bn_b(self.conv6_2(torch.cat([a, c], -1))))))
+        out = torch.cat([self.a_mbox_pred(a).reshape(a.shape[0], -1, self.n_classes + 5),
+                         self.b_mbox_pred(b).reshape(b.shape[0], -1, self.n_classes + 5)], 1)
+        scores = torch.softmax(out[..., :self.n_classes + 1].float(), -1)
+        pad = scores.new_zeros(*scores.shape[:2], 8)
+        return torch.cat([scores, out[..., self.n_classes + 1:].float(), pad], -1)
+
+
+class WideDetector(nn.Module):
+    """The port's counterpart of the JAX trainer test's `TinyDetector`
+    (`tests/test_trainer.py`): a 1024-wide 3x3 `fc6`, which the default
+    rule shards, a global average pool and a `Dense` head of `n_boxes`
+    boxes; anchor columns 0.1."""
+
+    def __init__(self, n_classes=3, n_boxes=32, in_features=16, generator=None):
+        super().__init__()
+        self.n_classes, self.n_boxes = n_classes, n_boxes
+        self.fc6 = layers.Conv(in_features, 1024, 3, generator=generator)
+        self.head = layers.Dense(1024, n_boxes * (n_classes + 5), generator=generator)
+
+    def forward(self, inputs):
+        x = torch.relu(self.fc6(inputs[0])).mean(dim=(1, 2))
+        out = self.head(x).reshape(x.shape[0], self.n_boxes, -1)
+        conf = torch.softmax(out[..., :self.n_classes + 1], -1)
+        loc = out[..., self.n_classes + 1:]
+        return torch.cat([conf, loc, loc.new_full((*loc.shape[:-1], 8), 0.1)], -1)
+
+
 class TinyClassifier(nn.Module):
     """`Conv` + `BatchNorm` on the planes, global average pool, `Dropout`
     and a `Dense` head: the classification step with dropout."""
@@ -120,13 +186,15 @@ def _tiny_inputs(batch):
 
 @contextlib.contextmanager
 def tiny_models():
-    """`tiny_ssd` in the model registry inside the block (so `fit` builds
-    it), removed after it."""
+    """`tiny_ssd` and `tiny_tp_ssd` in the model registry inside the block
+    (so `fit` builds them), removed after it."""
     MODEL_REGISTRY["tiny_ssd"] = RegistryEntry(lambda **kw: (TinySSD(**kw), _tiny_inputs(2)), "dct")
+    MODEL_REGISTRY["tiny_tp_ssd"] = RegistryEntry(
+        lambda **kw: (TinyTPSSD(**kw), _tiny_inputs(2)), "dct")
     try:
         yield
     finally:
-        del MODEL_REGISTRY["tiny_ssd"]
+        del MODEL_REGISTRY["tiny_ssd"], MODEL_REGISTRY["tiny_tp_ssd"]
 
 
 def gt_rows(rng, n_valid, img, max_gt=8):
@@ -164,55 +232,100 @@ def _state(module):
     return {k: v.detach().cpu().clone() for k, v in module.state_dict().items()}
 
 
+def _rule(min_features):
+    return functools.partial(tensor_parallel_rule, min_features=min_features)
+
+
+def _whole(trainer):
+    """The trainer's whole parameters and statistics, the momentum buffers
+    by state_dict key, and the shapes this rank holds of each (a collective
+    under tensor parallelism: every rank calls it)."""
+    state = checkpoint_state(trainer)
+    keys = {id(p): k for k, p in trainer.model.named_parameters()}
+    params = [p for group in trainer.optimizer.param_groups for p in group["params"]]
+    local = {keys[id(p)]: trainer.optimizer.state[p]["momentum_buffer"] for p in params
+             if "momentum_buffer" in trainer.optimizer.state[p]}
+    whole = {keys[id(params[i])]: s["momentum_buffer"].cpu().clone()
+             for i, s in state["optimizer"]["state"].items()}
+    return {"state": {k: v.detach().cpu().clone() for k, v in state["model"].items()},
+            "momentum": whole,
+            "shapes": {"weights": {k: tuple(p.shape) for k, p in trainer.model.named_parameters()},
+                       "momentum": {k: tuple(v.shape) for k, v in local.items()},
+                       "momentum_dtype": {k: v.dtype for k, v in local.items()}}}
+
+
 def _encoder(device):
     return TargetEncoder(TINY_SPEC, TINY_SIZES, n_classes=N_CLASSES, device=device)
 
 
-def detect_steps(steps=3, global_batch=4, device="cpu", n_valid=None, l2=5e-4):
-    """`steps` train steps of `TinySSD` through the v3 device augment (12 ->
-    8 blocks), the target encoder and the SSD loss with the L2 penalty, on
-    this rank's rows of seeded global batches.  Returns the per-step
-    metrics and the final weights and BatchNorm statistics."""
-    mesh = make_mesh()
-    model = TinySSD(generator=torch.Generator().manual_seed(0))
+def detect_steps(steps=3, global_batch=4, device="cpu", n_valid=None, l2=5e-4, tp=False,
+                 n_model=1, min_features=32, momentum_dtype="float32", noise=0.0):
+    """`steps` train steps of `TinySSD` (with `tp`, `TinyTPSSD` with the B4
+    route on, its kernels of at least `min_features` outputs sharded over
+    `n_model` model ranks) through the v3 device augment (12 -> 8 blocks),
+    the target encoder and the SSD loss with the L2 penalty, on this rank's
+    rows of seeded global batches.  Returns the per-step metrics, the final
+    weights and BatchNorm statistics (whole) and, with `tp`, the momentum
+    and the shapes this rank holds.  `noise` times the model index is added
+    to every replicated parameter's gradient, as a nondeterministic kernel
+    would make the ranks' gradients differ."""
+    mesh = make_mesh(n_model=n_model)
+    model = (TinyTPSSD if tp else TinySSD)(generator=torch.Generator().manual_seed(0))
+    shard_parameters(model, mesh, _rule(min_features))
+    if noise:
+        shards = model_shards(model)
+        for name, p in model.named_parameters():
+            if name not in shards:
+                p.register_hook(lambda g, eps=noise * mesh.model_index: g + eps)
+    optimizer = (BF16MomentumSGD(model.parameters(), lr=0.05, momentum=0.9)
+                 if momentum_dtype == "bfloat16"
+                 else torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9))
     trainer = Trainer(
         model=model,
         loss_fn=detection_loss_fn(SSDLoss(), l2_scale=l2),
-        optimizer=torch.optim.SGD(model.parameters(), lr=0.05, momentum=0.9),
+        optimizer=optimizer,
         target_encoder=_encoder(device),
         augment_fn=ops.make_dct_detection_augment_v3(8, device=device),
-        device=device, mesh=mesh,
+        pallas_wgrad=tp, device=device, mesh=mesh,
     )
     batches = [shard_batch(b, mesh) for b in detection_batches(steps, global_batch, 0, n_valid)]
     metrics = trainer.train_steps(batches, seed=7)
-    return {"metrics": {k: v.cpu() for k, v in metrics.items()}, "state": _state(model)}
+    return {"metrics": {k: v.cpu() for k, v in metrics.items()}, **_whole(trainer)}
 
 
 def ssd_custom_step(steps=1, global_batch=2, device="cpu", compute_dtype="float32",
-                    pallas_wgrad=False):
+                    pallas_wgrad=False, n_model=1, min_features=1024):
     """`steps` train steps of the full `ssd300_ssd_custom` (`build_trainer`)
-    through the v3 device augment (44 -> 38 blocks) on this rank's rows."""
+    through the v3 device augment (44 -> 38 blocks) on this rank's rows,
+    its kernels of at least `min_features` outputs sharded over `n_model`
+    model ranks; the state whole."""
     from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
 
-    mesh = make_mesh()
+    mesh = make_mesh(n_model=n_model)
     encoder = TargetEncoder(AnchorSpec(img_height=304, img_width=304),
                             ssd_predictor_sizes("resnet_custom"), device=device)
     config = ExperimentConfig(compute_dtype=compute_dtype, batch_size=global_batch,
-                              pallas_wgrad=pallas_wgrad)
+                              pallas_wgrad=pallas_wgrad, n_model_shards=n_model)
     trainer, module, _ = build_trainer(
         config, target_encoder=encoder, augment_fn=ops.make_dct_detection_augment_v3(38, device=device),
-        device=device, mesh=mesh)
+        device=device, mesh=mesh, tp_rule=_rule(min_features))
     batches = [shard_batch(b, mesh)
                for b in detection_batches(steps, global_batch, 0, source_blocks=44)]
     metrics = trainer.train_steps(batches, seed=config.seed + 1)
-    return {"metrics": {k: v.cpu() for k, v in metrics.items()}, "state": _state(module)}
+    state = checkpoint_state(trainer)["model"]
+    return {"metrics": {k: v.cpu() for k, v in metrics.items()},
+            "state": {k: v.detach().cpu().clone() for k, v in state.items()},
+            "n_params": sum(p.numel() for p in module.parameters())}
 
 
-def classify_steps(steps=3, global_batch=4, device="cpu"):
+def classify_steps(steps=3, global_batch=4, device="cpu", n_model=1, min_features=10):
     """`steps` classification steps of `TinyClassifier` (dropout 0.5,
-    Nesterov SGD) on this rank's rows of seeded global batches."""
-    mesh = make_mesh()
+    Nesterov SGD) on this rank's rows of seeded global batches, its conv
+    and Dense kernels of at least `min_features` outputs sharded over
+    `n_model` model ranks."""
+    mesh = make_mesh(n_model=n_model)
     model = TinyClassifier(generator=torch.Generator().manual_seed(0))
+    shard_parameters(model, mesh, _rule(min_features))
     trainer = Trainer(
         model=model, loss_fn=classification_loss_fn(),
         optimizer=torch.optim.SGD(model.parameters(), lr=0.1, momentum=0.9, nesterov=True),
@@ -225,7 +338,7 @@ def classify_steps(steps=3, global_batch=4, device="cpu"):
         labels = rng.integers(0, 10, global_batch).astype(np.int32)
         batches.append(shard_batch({"inputs": inputs, "labels": labels}, mesh))
     metrics = trainer.train_steps(batches, seed=3)
-    return {"metrics": {k: v.cpu() for k, v in metrics.items()}, "state": _state(model)}
+    return {"metrics": {k: v.cpu() for k, v in metrics.items()}, **_whole(trainer)}
 
 
 def mining_problem(global_batch=4, n_anchors=64, n_classes=3):
@@ -260,23 +373,26 @@ def mining_loss(global_batch=4):
     return {"loss": loss.detach(), "grad": y_pred.grad}
 
 
-def fit_run(run_dir, epochs, restart=False, global_batch=4):
-    """`fit` of the registry's `tiny_ssd` with checkpoints in `run_dir`,
-    one step an epoch, counting `CheckpointManager.save` calls on this
-    rank.  Returns the history, the saves and the final state."""
+def fit_run(run_dir, epochs, restart=False, global_batch=4, model="tiny_ssd", n_model=1,
+            min_features=32):
+    """`fit` of the registry's `model` with checkpoints in `run_dir`, one
+    step an epoch, its kernels of at least `min_features` outputs sharded
+    over `n_model` model ranks, counting `CheckpointManager.save` calls on
+    this rank.  Returns the history, the saves and the final state
+    (whole)."""
     from jpeg_detection_resnet_ssd_torch.train import checkpoints
 
-    mesh = make_mesh()
+    mesh = make_mesh(n_model=n_model)
     saves = []
     original = checkpoints.CheckpointManager.save
 
-    def counting_save(self, step, trainer):
+    def counting_save(self, step, trainer, *args):
         saves.append(step)
-        return original(self, step, trainer)
+        return original(self, step, trainer, *args)
 
-    config = ExperimentConfig(model="tiny_ssd", compute_dtype="float32", batch_size=global_batch,
+    config = ExperimentConfig(model=model, compute_dtype="float32", batch_size=global_batch,
                               epochs=epochs, steps_per_epoch=1, learning_rate=0.05,
-                              restart=restart, model_kwargs={})
+                              restart=restart, n_model_shards=n_model, model_kwargs={})
     batches = [shard_batch(b, mesh) for b in detection_batches(epochs, global_batch, 2)]
 
     class Epochs:  # epoch e yields batch e, as a seeded pipeline would
@@ -298,10 +414,10 @@ def fit_run(run_dir, epochs, restart=False, global_batch=4):
             trainer, history = fit(config, Epochs(), run_dir=run_dir, log_every=1,
                                    target_encoder=_encoder("cpu"),
                                    augment_fn=ops.make_dct_detection_augment_v3(8, device="cpu"),
-                                   device="cpu", mesh=mesh)
+                                   device="cpu", mesh=mesh, tp_rule=_rule(min_features))
     finally:
         checkpoints.CheckpointManager.save = original
-    return {"history": history, "saves": saves, "state": _state(trainer.model)}
+    return {"history": history, "saves": saves, **_whole(trainer)}
 
 
 def pack_corpus(stem, voc_root):
@@ -330,6 +446,58 @@ def pack_corpus(stem, voc_root):
             "y0": np.asarray(packed.y[0]).copy()}
 
 
+def mesh_layout(n_model, bad_n_data):
+    """`make_mesh(n_model=n_model)` as this rank sees it: its indices and
+    the ranks of its data and model groups; and the error of a mesh of
+    `bad_n_data` x `n_model`."""
+    mesh = make_mesh(n_model=n_model)
+
+    def members(group):
+        return [mesh.rank] if group is None else torch.distributed.get_process_group_ranks(group)
+
+    try:
+        make_mesh(n_data=bad_n_data, n_model=n_model)
+        error = None
+    except ValueError as e:
+        error = str(e)
+    return {"shape": mesh.shape, "rank": mesh.rank, "data_index": mesh.data_index,
+            "model_index": mesh.model_index, "data_group": members(mesh.data_group),
+            "model_group": members(mesh.model_group), "error": error}
+
+
+def _tree(path):
+    """A nested dict of the arrays an .npz file holds under '/'-joined keys."""
+    tree = {}
+    with np.load(path) as f:
+        for key in f.files:
+            *scope, leaf = key.split("/")
+            node = tree
+            for part in scope:
+                node = node.setdefault(part, {})
+            node[leaf] = f[key]
+    return tree
+
+
+def wide_steps(variables, batch, steps=2, n_model=1):
+    """`steps` SGD steps (lr 1e-3, momentum 0.9) of `WideDetector` from the
+    flax `variables` (.npz) on `batch` (.npz: y, cbcr, targets), the SSD
+    loss and the L2 penalty, its 1024-wide `fc6` sharded by the default rule
+    over `n_model` model ranks: the port's side of the JAX tensor-parallel
+    step.  Returns the per-step metrics and the whole final weights."""
+    from jpeg_detection_resnet_ssd_torch.compat import load_flax_variables
+
+    mesh = make_mesh(n_model=n_model)
+    model = load_flax_variables(WideDetector(), _tree(variables))
+    shard_parameters(model, mesh)
+    trainer = Trainer(model=model, loss_fn=detection_loss_fn(SSDLoss(), l2_scale=5e-4),
+                      optimizer=torch.optim.SGD(model.parameters(), lr=1e-3, momentum=0.9),
+                      device="cpu", mesh=mesh)
+    with np.load(batch) as f:
+        rows = {"inputs": (f["y"], f["cbcr"]), "targets": f["targets"]}
+    metrics = trainer.train_steps([rows] * steps, seed=0)
+    return {"metrics": {k: v.cpu() for k, v in metrics.items()}, **_whole(trainer)}
+
+
 CASES = {
     "detect": detect_steps,
     "ssd_custom": ssd_custom_step,
@@ -337,6 +505,8 @@ CASES = {
     "mining": mining_loss,
     "fit": fit_run,
     "pack": pack_corpus,
+    "mesh": mesh_layout,
+    "wide": wide_steps,
 }
 
 
@@ -377,6 +547,35 @@ def run_ranks(case, tmp_dir, procs, world=2, timeout=90, **kwargs):
         results.append(torch.load(f"{out}.{r}", weights_only=False))
         os.remove(f"{out}.{r}")
     return results
+
+
+def run_cli_ranks(argv, tmp_path, outs, world=2, timeout=120):
+    """The CLI command `argv` and its `--restart`, `world` ranks each under
+    the environment `torchrun` sets; appends rank 0's (run dir line, last
+    row) to `outs`.  The other ranks must print nothing."""
+    for extra in (["--epochs", "1"], ["--epochs", "2", "--restart"]):
+        with socket.socket() as s:
+            s.bind(("localhost", 0))
+            port = s.getsockname()[1]
+        procs = [subprocess.Popen(argv + extra, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                                  text=True, cwd=str(tmp_path),
+                                  env=dict(os.environ, RANK=str(r), WORLD_SIZE=str(world),
+                                           LOCAL_RANK=str(r), MASTER_ADDR="localhost",
+                                           MASTER_PORT=str(port), OMP_NUM_THREADS="1",
+                                           PYTHONPATH=str(REPO)))
+                 for r in range(world)]
+        try:
+            done = [p.communicate(timeout=timeout) for p in procs]
+        finally:
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+                    p.wait(timeout=10)
+        for r, (p, (out, err)) in enumerate(zip(procs, done)):
+            assert p.returncode == 0, f"rank {r}:\n{err[-3000:]}"
+        assert all(out.strip() == "" for out, _ in done[1:])  # rank 0 alone prints
+        lines = done[0][0].strip().splitlines()
+        outs.append((lines[0], json.loads(lines[-1])))
 
 
 def main(argv):
