@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py        # from the repository root; one card, nvcc
 
-Nine paths, the first five and the last two at the full width of
+Ten paths, the first five and the last three at the full width of
 `ssd300_ssd_custom`:
   * inference: `build_model` -> forward on seeded DCT planes ->
     `make_inference_fn` (candidate selection, batched greedy NMS on the CUDA
@@ -49,8 +49,16 @@ Nine paths, the first five and the last two at the full width of
     ranks sharing the card, whose model axis shards the widest kernels
     (`parallel.shard_parameters`), and `cli.main(["train-detect",
     "--n-model-shards", "2", ...])` on two ranks, its checkpoint restored
-    and decoded in one process.
-    The card's machine has no libjpeg, so no step decodes a JPEG here.
+    and decoded in one process;
+  * the convergence proxies (ROADMAP A17): `scripts/torch_convergence_proxy.py`
+    (`device_v3`) on the first 64 train and 16 held-out images of its
+    generated 20-class corpus, `ssd300_ssd_custom` trained for 60 steps at
+    batch 32 bf16 and scored by held-out mAP through both candidate
+    selectors; `scripts/torch_cls_convergence_proxy.py` (`device`) for 40
+    steps at batch 64.
+The card's machine has no libjpeg: the DCT planes come from NumPy, written
+directly or, in the proxies, computed from PIL-decoded pixels by the NumPy
+JPEG codec (`data/dct_convert.py`, bit-exact with the libjpeg path).
 
 Phases (any failure exits non-zero):
   1. card name and power limit (nvidia-smi);
@@ -228,6 +236,17 @@ Phases (any failure exits non-zero):
      parameters, gives their train-mode forward (1e-3 of the largest) and
      decodes through B1 once; each rank's launches, model-axis collectives
      a step, parameter and momentum bytes, peak memory and seconds;
+ 9k. the convergence proxies: the detection proxy's corpus generated by the
+     port's generator (64 train, 16 held-out images of the seeded stream)
+     and packed at 352 px by the NumPy codec (its SHA-256 printed beside the
+     libjpeg path's pinned digest, PROXY_CORPUS_SHA256); `device_v3` for 60
+     steps at batch 32 bf16 (launches reset just before and read just after:
+     B2 1 and B3 2 a step, B1 1 in each held-out decode, 2 selectors x 2
+     batches), losses finite and the last 10 steps' mean below the first
+     10's, mAP in [0, 1], the selectors' predictions compared and their mAP
+     delta printed; the classification proxy (`device`, 128 train and 32
+     held-out images, 40 steps at batch 64 bf16: B3 2 a step), the same
+     loss checks, top-1 in [0, 1]; warm steps/s and the phase's seconds;
  10. the `kernels` JSON line (B3's and B4's entries with a `classification`
      part: the train-classify run's launches and the per-step times at the
      classification shapes; every entry with a `vgg` part: the launches of
@@ -236,8 +255,9 @@ Phases (any failure exits non-zero):
      B1's entry with a `serve` part: its launches inside 9h's artifact;
      B2's, B3's and B4's with a `data_parallel` part: each rank's launches
      in 9i's 2-rank step; every entry with a `tensor_parallel` part: each
-     rank's launches in each arm of 9j, B1's in its decode), the card line,
-     and the final JSON line.
+     rank's launches in each arm of 9j, B1's in its decode; B1's, B2's and
+     B3's with a `proxy` part: their launches in 9k, B3's also in the
+     classification proxy), the card line, and the final JSON line.
 
 Weights are the port's seeded init (torch.Generator seeded 0); for inference
 the BatchNorm running statistics are calibrated on the batch-32 request (one
@@ -3064,6 +3084,147 @@ def run_tensor_parallel(card: str, one_process: dict) -> dict:
     return launches
 
 
+# Phase 9k: the convergence proxies (ROADMAP A17) at a cut depth: the first
+# PROXY_TRAIN train and PROXY_TEST held-out images of the detection proxy's
+# corpus, and a classification corpus of CLS_PROXY_TRAIN / CLS_PROXY_TEST.
+PROXY_TRAIN, PROXY_TEST, PROXY_STEPS, PROXY_BATCH = 64, 16, 60, 32
+CLS_PROXY_TRAIN, CLS_PROXY_TEST, CLS_PROXY_STEPS, CLS_PROXY_BATCH = 128, 32, 40, 64
+# SHA-256 of the `.y.npy` and `.cbcr.npy` that `PackedDctDataset.create` writes
+# at 352 px for the PROXY_TRAIN train images, from the libjpeg path where
+# libjpeg is installed (tests/test_torch_proxy.py holds both codecs to it);
+# the card's NumPy-codec digests are printed beside them, not held to them,
+# since the card's own PIL decodes the corpus' JPEGs.
+PROXY_CORPUS_SHA256 = {
+    ".y.npy": "d79b1f844e75ac60e32d027d40b4f76a5046d3b7b16b854cdf99faafb27a448a",
+    ".cbcr.npy": "1a4afed77716ae5af952bddf6be5b95621dc585f8e15d5d7efa53cbdd904a498",
+}
+
+
+def proxy_script(name: str):
+    """A proxy script of `scripts/` as a module (they import only the port)."""
+    import importlib
+
+    scripts = os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts")
+    if scripts not in sys.path:
+        sys.path.insert(0, scripts)
+    return importlib.import_module(name)
+
+
+def file_sha256(path: str) -> str:
+    import hashlib
+
+    with open(path, "rb") as f:
+        return hashlib.sha256(f.read()).hexdigest()
+
+
+def check_proxy_losses(label: str, history: list, steps_per_row: int, card: str) -> None:
+    """Every epoch row's loss finite, the last 10 steps' mean below the first
+    10's (each row is the mean of its epoch's steps); warm steps/s over the
+    second half of the rows by `fit`'s time_s (10 ms resolution)."""
+    losses = [row["total_loss"] for row in history]
+    k = max(1, 10 // steps_per_row)
+    first, last = float(np.mean(losses[:k])), float(np.mean(losses[-k:]))
+    warm = history[len(history) // 2:]
+    warm_s = sum(row["time_s"] for row in warm)
+    print(f"    {label}: loss, first {k * steps_per_row} steps {first:.4f}, last {k * steps_per_row} "
+          f"{last:.4f}; warm {steps_per_row * len(warm) / warm_s:.3f} steps/s "
+          f"({len(warm) * steps_per_row} steps, fit's time_s)  [{card}]")
+    check(all(np.isfinite(losses)), f"{label}: every loss finite")
+    check(last < first, f"{label}: the last 10 steps' mean loss is below the first 10's")
+
+
+def run_proxies(card: str) -> dict:
+    """Phase 9k: the detection proxy (`scripts/torch_convergence_proxy.py`,
+    `device_v3`) and the classification proxy (`device`) on the card, at a
+    cut depth, with every DCT plane from the NumPy codec (no libjpeg here).
+    Returns the kernels' launches in each."""
+    from jpeg_detection_resnet_ssd_torch.data import DetectionDataset
+    from jpeg_detection_resnet_ssd_torch.data.packed import PackedDctDataset
+    from jpeg_detection_resnet_ssd_torch.ops import batched_nms, conv_grad, dct_flip
+    from jpeg_detection_resnet_ssd_torch.ops import bipartite_match as bm
+
+    def reset():
+        batched_nms.LAUNCHES = bm.LAUNCHES = conv_grad.LAUNCHES = dct_flip.LAUNCHES = 0
+
+    def read():
+        torch.cuda.synchronize()
+        return {"nms": batched_nms.LAUNCHES, "match": bm.LAUNCHES, "flip": dct_flip.LAUNCHES,
+                "wgrad": conv_grad.LAUNCHES}
+
+    t_phase = time.perf_counter()
+    det, cls = proxy_script("torch_convergence_proxy"), proxy_script("torch_cls_convergence_proxy")
+    print(f"[9k] the convergence proxies on {card}: device_v3 detection ({PROXY_TRAIN} train, "
+          f"{PROXY_TEST} held-out images, {PROXY_STEPS} steps at batch {PROXY_BATCH} bf16), "
+          f"classification ({CLS_PROXY_TRAIN}/{CLS_PROXY_TEST}, {CLS_PROXY_STEPS} steps at batch "
+          f"{CLS_PROXY_BATCH}); DCT planes from the NumPy codec")
+    with tempfile.TemporaryDirectory() as tmp:
+        root = os.path.join(tmp, "voc_shapes")
+        t0 = time.perf_counter()
+        det.generate_corpus(root, keep=(PROXY_TRAIN, PROXY_TEST))
+        t1 = time.perf_counter()
+        ds = DetectionDataset.from_voc(f"{root}/JPEGImages", f"{root}/ImageSets/Main/trainval.txt",
+                                       f"{root}/Annotations")
+        stem = os.path.join(root, f"packed_{det.PACK_SIDE}")
+        PackedDctDataset.create(ds, stem, img_height=det.PACK_SIDE, img_width=det.PACK_SIDE,
+                                num_workers=8, codec="numpy")
+        print(f"    corpus: generated in {t1 - t0:.2f} s, packed at {det.PACK_SIDE} px by the NumPy "
+              f"codec in {time.perf_counter() - t1:.2f} s")
+        for ext, pinned in PROXY_CORPUS_SHA256.items():
+            print(f"    {ext}: SHA-256 {file_sha256(stem + ext)} on the card (NumPy codec), "
+                  f"{pinned} pinned from the libjpeg path")
+        args = det.build_parser().parse_args([str(a) for a in (
+            "--variant", "device_v3", "--steps", PROXY_STEPS, "--batch-size", PROXY_BATCH,
+            "--data-root", root, "--output-dir", os.path.join(tmp, "runs"), "--codec", "numpy",
+            "--num-workers", 8)])
+        reset()
+        t0 = time.perf_counter()
+        out, details = det.run(args)
+        launches = read()
+        print(f"    {json.dumps(out)}")
+        print(f"    detection proxy: {time.perf_counter() - t0:.1f} s; kernel launches: NMS "
+              f"{launches['nms']}, matching {launches['match']}, flip {launches['flip']}, "
+              f"filter gradient {launches['wgrad']} (off, as the reference's config)")
+        check_proxy_losses("detection", details["history"], PROXY_TRAIN // PROXY_BATCH, card)
+        n_decodes = 2 * -(-PROXY_TEST // 8)
+        check(launches == {"nms": n_decodes, "match": PROXY_STEPS, "flip": 2 * PROXY_STEPS,
+                           "wgrad": 0},
+              f"B2 once and B3 twice a step, B1 once in each of the {n_decodes} held-out decodes "
+              f"(2 selectors x {n_decodes // 2} batches)")
+        check(0.0 <= out["heldout_mAP"] <= 1.0 and 0.0 <= out["heldout_mAP_shared_selector"] <= 1.0,
+              "held-out mAP in [0, 1] for both selectors")
+        exact, shared = details["predictions"]["exact"], details["predictions"]["shared"]
+        same = exact == shared
+        print(f"    selectors on the same weights: {sum(map(len, exact))} exact and "
+              f"{sum(map(len, shared))} shared predictions, identical lists: {same}; mAP exact "
+              f"{details['mAP']['exact']:.6f}, shared {details['mAP']['shared']:.6f}, delta "
+              f"{details['mAP']['shared'] - details['mAP']['exact']:.6f}")
+        del details
+
+        reset()
+        t0 = time.perf_counter()
+        args = cls.build_parser().parse_args([str(a) for a in (
+            "--variant", "device", "--steps", CLS_PROXY_STEPS, "--batch-size", CLS_PROXY_BATCH,
+            "--n-train", CLS_PROXY_TRAIN, "--n-test", CLS_PROXY_TEST,
+            "--data-root", os.path.join(tmp, "cls_shapes"), "--output-dir",
+            os.path.join(tmp, "cls_runs"), "--codec", "numpy", "--num-workers", 8)])
+        cls_out, details = cls.run(args)
+        cls_launches = read()
+        print(f"    {json.dumps(cls_out)}")
+        print(f"    classification proxy (corpus and packing included): "
+              f"{time.perf_counter() - t0:.1f} s; kernel launches: flip {cls_launches['flip']}, "
+              f"matching {cls_launches['match']}, NMS {cls_launches['nms']}, filter gradient "
+              f"{cls_launches['wgrad']}")
+        check_proxy_losses("classification", details["history"], CLS_PROXY_TRAIN // CLS_PROXY_BATCH,
+                           card)
+        check(cls_launches == {"nms": 0, "match": 0, "flip": 2 * CLS_PROXY_STEPS, "wgrad": 0},
+              "B3 twice a classification step, no other kernel")
+        check(0.0 <= cls_out["heldout_top1"] <= 1.0, "held-out top-1 in [0, 1]")
+        del details
+    torch.cuda.empty_cache()
+    print(f"    phase 9k: {time.perf_counter() - t_phase:.1f} s")
+    return {"detection": launches, "classification": cls_launches}
+
+
 def tp_launches(tp: dict, kernel: str) -> dict:
     """One kernel's launches in each arm of phase 9j, a list by rank."""
     return {arm: [r[kernel] for r in ranks] for arm, ranks in tp.items() if arm != "cli"} | {
@@ -3121,6 +3282,7 @@ def main() -> int:
     serve = run_serving(dev, card, **served)
     dp = run_data_parallel(card)
     tp = run_tensor_parallel(card, dp["one_process"])
+    proxy = run_proxies(card)
 
     print(f"[10] done in {time.perf_counter() - t_start:.1f} s")
     source = "jpeg_detection_resnet_ssd_torch/ops/csrc/{}.cu"
@@ -3129,13 +3291,15 @@ def main() -> int:
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_nms.py:114",
          "max_abs_err": nms_err, "library_ms": None, **nms,
          "vgg": {"launches": fam["nms_launches"]}, "serve": serve,
-         "tensor_parallel": {"launches": tp["cli"]["decode"]}},
+         "tensor_parallel": {"launches": tp["cli"]["decode"]},
+         "proxy": {"launches": proxy["detection"]["nms"]}},
         {"name": "bipartite_match", "route": "cuda", "source": source.format("bipartite_match"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_match.py:174",
          "max_abs_err": match_err, "library_ms": None, **train["match"],
          "vgg": {"launches": fam["launches"]["match"]},
          "data_parallel": {"launches": [r["match"] for r in dp["launches"]]},
-         "tensor_parallel": {"launches": tp_launches(tp, "match")}},
+         "tensor_parallel": {"launches": tp_launches(tp, "match")},
+         "proxy": {"launches": proxy["detection"]["match"]}},
         {"name": "conv3x3_filter_grad", "route": "cuda", "source": source.format("conv3x3_wgrad"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_conv_grad.py:128",
          "max_abs_err": max(wgrad_err, train["wgrad_step_err"], cls_wgrad["max_abs_err"],
@@ -3148,7 +3312,9 @@ def main() -> int:
          "max_abs_err": max(flip_err, cls_flip["max_abs_err"]), "library_ms": None, **flip,
          "classification": cls_flip, "vgg": {"launches": fam["launches"]["flip"]},
          "data_parallel": {"launches": [r["flip"] for r in dp["launches"]]},
-         "tensor_parallel": {"launches": tp_launches(tp, "flip")}},
+         "tensor_parallel": {"launches": tp_launches(tp, "flip")},
+         "proxy": {"launches": proxy["detection"]["flip"],
+                   "classification": proxy["classification"]["flip"]}},
     ]}))
     print(card)
     print(json.dumps({"ok": True, "device": {

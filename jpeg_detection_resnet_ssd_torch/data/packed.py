@@ -35,7 +35,7 @@ import numpy as np
 import torch.distributed
 
 from jpeg_detection_resnet_ssd_torch.data import augment as aug
-from jpeg_detection_resnet_ssd_torch.data.dct_convert import rgb_to_dct_tensors
+from jpeg_detection_resnet_ssd_torch.data.dct_convert import check_codec, rgb_to_dct_tensors
 from jpeg_detection_resnet_ssd_torch.data.pipeline import _load_record_rgb, _load_rgb
 from jpeg_detection_resnet_ssd_torch.utils.distributed import process_count, process_index
 
@@ -74,11 +74,13 @@ class PackedDctDataset:
         quality: int = 75,
         num_workers: int = 8,
         verbose: bool = False,
+        codec: str = "libjpeg",
     ) -> "PackedDctDataset":
         """Pack an (image, class-label) dataset (records `(path, label)`, as
         `ImageFolderDataset` gives) at the device-augment source frame
         (oversized, e.g. 256 = 32 luma blocks for a 224 crop): the
-        evaluation view's resize, then the block DCT."""
+        evaluation view's resize, then the block DCT by `codec`."""
+        check_codec(codec)
         n = len(dataset)
         s8 = img_size // 8
         os.makedirs(os.path.dirname(stem) or ".", exist_ok=True)
@@ -94,7 +96,7 @@ class PackedDctDataset:
         def work(i):
             path, label = dataset[i]
             image = aug.classification_eval_view(_load_rgb(path), size=img_size)
-            y, cbcr = rgb_to_dct_tensors(image, quality=quality)
+            y, cbcr = rgb_to_dct_tensors(image, quality=quality, codec=codec)
             y_arr[i] = y.astype(np.int16)
             c_arr[i] = cbcr.astype(np.int16)
             labels[i] = label
@@ -124,6 +126,7 @@ class PackedDctDataset:
         num_workers: int = 8,
         verbose: bool = False,
         use_native: bool = True,
+        codec: str = "libjpeg",
     ) -> "PackedDctDataset":
         """Decode + resize + block-DCT every record once.
 
@@ -135,7 +138,11 @@ class PackedDctDataset:
         bilinear resize, 4:2:0 re-encode, coefficient decode) in one C++ call
         (`dctjpeg.pack`) that releases the GIL.  Records the native path
         cannot decode (e.g. PNGs) take the Python path (`aug.resize` and
-        `rgb_to_dct_tensors`); box rescaling is `aug.resize`'s either way."""
+        `rgb_to_dct_tensors`); box rescaling is `aug.resize`'s either way.
+        `codec="numpy"` takes the Python path for every record (PIL decode,
+        `aug.resize`, the NumPy codec) and never calls libjpeg's encoder:
+        the same files, where libjpeg is missing."""
+        native = check_codec(codec) == "libjpeg" and use_native
         n = len(dataset)
         h8, w8 = img_height // 8, img_width // 8
         os.makedirs(os.path.dirname(stem) or ".", exist_ok=True)
@@ -180,9 +187,9 @@ class PackedDctDataset:
 
         def work(i):
             rec = dataset[i]
-            native = native_pack_record(rec) if use_native else None
-            if native is not None:
-                y, cbcr, labels = native
+            out = native_pack_record(rec) if native else None
+            if out is not None:
+                y, cbcr, labels = out
             else:
                 image = _load_record_rgb(rec)
                 labels = rec["boxes"].copy()
@@ -190,7 +197,7 @@ class PackedDctDataset:
                     aug.to_3_channels(image), labels, img_height, img_width,
                     filter_degenerate=False,
                 )
-                y, cbcr = rgb_to_dct_tensors(image, quality=quality)
+                y, cbcr = rgb_to_dct_tensors(image, quality=quality, codec=codec)
             y_arr[i] = y.astype(np.int16)
             c_arr[i] = cbcr.astype(np.int16)
             k = min(len(labels), max_gt)
@@ -222,6 +229,7 @@ def load_or_create(
     task: str = "detection",
     num_workers: int = 8,
     verbose: bool = True,
+    codec: str = "libjpeg",
     **create_kwargs,
 ) -> PackedDctDataset:
     """Create-or-load with staleness validation, safe across processes.
@@ -232,7 +240,9 @@ def load_or_create(
     writers would corrupt the memmaps); then every rank validates the loaded
     corpus against the dataset's size and the pack parameters, so a stale
     cache (a different dataset, a changed frame size or quality) raises
-    instead of training on the wrong data.  Shard at the pipeline
+    instead of training on the wrong data.  `codec` computes the planes
+    when packing (both codecs write the same files, so a cache packed by
+    either serves both).  Shard at the pipeline
     (`PackedDctPipeline(shard_index=..., shard_count=...)`), never here."""
     # Every rank enters the barrier whatever it sees on disk: a rank that
     # branched on its own os.path.exists() and saw the cache only after rank
@@ -242,7 +252,8 @@ def load_or_create(
     if process_index() == 0 and not os.path.exists(stem + ".meta.json"):
         create = (PackedDctDataset.create_classification if task == "classification"
                   else PackedDctDataset.create)
-        create(dataset, stem, num_workers=num_workers, verbose=verbose, **create_kwargs)
+        create(dataset, stem, num_workers=num_workers, verbose=verbose, codec=codec,
+               **create_kwargs)
     if process_count() > 1:
         torch.distributed.barrier()
     packed = PackedDctDataset(stem)

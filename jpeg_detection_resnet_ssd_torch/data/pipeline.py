@@ -39,6 +39,7 @@ import torch
 
 from jpeg_detection_resnet_ssd_torch.data import augment as aug
 from jpeg_detection_resnet_ssd_torch.data.dct_convert import (
+    check_codec,
     rgb_to_dct_image,
     rgb_to_dct_tensors,
 )
@@ -62,10 +63,11 @@ def _load_record_rgb(rec: dict) -> np.ndarray:
     return _load_rgb(rec["image_path"])
 
 
-def _pack_inputs(images: list[np.ndarray], input_format: str):
+def _pack_inputs(images: list[np.ndarray], input_format: str, codec: str = "libjpeg"):
     """A batch of RGB images in a model's input contract: `rgb` (float32
     pixels), `dct_image` / `dct_255` (the jpegdecoder layout), `dct` (Y,
-    CbCr planes) or `dct_deconv` (Y, Cb, Cr)."""
+    CbCr planes) or `dct_deconv` (Y, Cb, Cr); `codec` computes the planes
+    (`rgb_to_dct_tensors`)."""
     if input_format == "rgb":
         return np.stack(images).astype(np.float32)
     if input_format == "dct_image":
@@ -80,7 +82,7 @@ def _pack_inputs(images: list[np.ndarray], input_format: str):
             [rgb_to_dct_image(im) for im in images]
         ).astype(np.int64)
         return ((planes + 1024) * 255 // 2048).astype(np.float32)
-    ys, cbcrs = zip(*(rgb_to_dct_tensors(im) for im in images))
+    ys, cbcrs = zip(*(rgb_to_dct_tensors(im, codec=codec) for im in images))
     y = np.stack(ys).astype(np.float32)
     cbcr = np.stack(cbcrs).astype(np.float32)
     if input_format == "dct_deconv":
@@ -94,13 +96,17 @@ def _pack_inputs(images: list[np.ndarray], input_format: str):
 class _BasePipeline:
     def __init__(self, dataset, batch_size: int, *, train: bool,
                  input_format: str = "dct", seed: int = 0,
-                 num_workers: int = 8, drop_remainder: bool | None = None):
+                 num_workers: int = 8, drop_remainder: bool | None = None,
+                 codec: str = "libjpeg"):
+        if check_codec(codec) == "numpy" and input_format in ("dct_image", "dct_255"):
+            raise ValueError(f"input_format {input_format!r} needs codec='libjpeg'")
         self.dataset = dataset
         self.batch_size = batch_size
         self.train = train
         self.input_format = input_format
         self.seed = seed
         self.num_workers = num_workers
+        self.codec = codec
         self.drop_remainder = train if drop_remainder is None else drop_remainder
         self._pool = ThreadPoolExecutor(max_workers=num_workers)
         self._epoch = 0
@@ -144,7 +150,8 @@ class ClassificationPipeline(_BasePipeline):
     generator; evaluation (or `host_augment=False` while training, the
     contract of the device-augment paths: epoch shuffling and
     drop_remainder stay, the host emits the deterministic view) applies
-    `classification_eval_view`."""
+    `classification_eval_view`.  `codec` ("libjpeg" or "numpy", keyword
+    of every pipeline) computes the DCT planes (`data.dct_convert`)."""
 
     def __init__(self, dataset, batch_size: int, *, train: bool,
                  input_format: str = "dct", image_size: int = 224,
@@ -169,7 +176,7 @@ class ClassificationPipeline(_BasePipeline):
         images = [im for im, _ in items]
         labels = np.asarray([lab for _, lab in items], np.int32)
         return {
-            "inputs": _pack_inputs(images, self.input_format),
+            "inputs": _pack_inputs(images, self.input_format, self.codec),
             "labels": labels,
         }
 
@@ -188,7 +195,8 @@ class DetectionPipeline(_BasePipeline):
     `augmentation`: "default" is the Caffe-SSD host chain
     (`augment.SSDDataAugmentation(img_height, img_width)`) when training and
     none otherwise; None resizes only; a callable `(image, labels, rng) ->
-    (image, labels)` is used as it is.
+    (image, labels)` is used as it is.  `codec` ("libjpeg" or "numpy")
+    computes the DCT planes (`data.dct_convert.rgb_to_dct_tensors`).
     """
 
     def __init__(self, dataset, batch_size: int, *, train: bool,
@@ -230,7 +238,7 @@ class DetectionPipeline(_BasePipeline):
         images = [it[0] for it in items]
         labels_list = [it[1] for it in items]
         batch: dict[str, Any] = {
-            "inputs": _pack_inputs(images, self.input_format)
+            "inputs": _pack_inputs(images, self.input_format, self.codec)
         }
         if self.encoder is not None:
             gt, mask = self.encoder.pad_labels(labels_list, self.max_gt)

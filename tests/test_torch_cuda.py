@@ -20,8 +20,8 @@ from jpeg_detection_resnet_ssd_torch.ops.dct_detect_augment import make_dct_dete
 
 from chip_smoke import write_detect_inputs
 from torch_cases import (
-    BORDERS, N_CLASSES, assert_augment_matches, augment_source, gt_batch, nms_problems,
-    raw_predictions, tie_sims,
+    BORDERS, CODEC_DIGEST, N_CLASSES, assert_augment_matches, augment_source, codec_digest,
+    gt_batch, nms_problems, raw_predictions, tie_sims,
 )
 
 torch.set_num_threads(1)
@@ -530,3 +530,35 @@ def test_two_model_ranks_on_one_card_equal_one_process(cuda, tmp_path, min_featu
         assert torch.equal(got[0], got[1]), key
         if want.is_floating_point():
             assert float((got[0] - want).abs().max()) <= 1e-3 * largest, key
+
+
+def test_numpy_codec_reproduces_the_pinned_digest(cuda):
+    """The card's machine has no libjpeg: the NumPy codec (NumPy alone, no
+    PIL) gives there the coefficients that the libjpeg path gives on the CPU
+    machine (digest pinned by `test_torch_numpy_codec.py`)."""
+    from jpeg_detection_resnet_ssd_torch.data.dct_convert import rgb_to_dct_tensors_numpy
+
+    assert codec_digest(rgb_to_dct_tensors_numpy) == CODEC_DIGEST
+
+
+def test_detection_proxy_runs_on_the_card(cuda, tmp_path, capsys):
+    """`chip_smoke.py` phase 9k's proxy at a few steps: `device_v3` at batch 4
+    in bf16 from 8 train images packed by the NumPy codec, 2 held out; B2
+    once and B3 twice a step, B1 once in each selector's decode."""
+    import json
+    import sys
+    from pathlib import Path
+
+    sys.path.insert(0, str(Path(__file__).resolve().parent.parent / "scripts"))
+    import torch_convergence_proxy as proxy
+
+    bipartite_match.LAUNCHES = dct_flip.LAUNCHES = batched_nms.LAUNCHES = 0
+    proxy.main([str(a) for a in (
+        "--variant", "device_v3", "--steps", 4, "--batch-size", 4, "--n-train", 8, "--n-test", 2,
+        "--codec", "numpy", "--num-workers", 4, "--data-root", tmp_path / "voc",
+        "--output-dir", tmp_path / "runs")])
+    torch.cuda.synchronize()
+    out = json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+    assert (bipartite_match.LAUNCHES, dct_flip.LAUNCHES, batched_nms.LAUNCHES) == (4, 8, 2)
+    assert np.isfinite(out["final_train_loss"]) and 0.0 <= out["heldout_mAP"] <= 1.0
+    assert (out["train_images"], out["test_images"]) == (8, 2)

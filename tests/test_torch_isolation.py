@@ -29,6 +29,8 @@ torch.set_num_threads(1)
 REPO = Path(__file__).resolve().parent.parent
 PORT_DIR = Path(port.__file__).resolve().parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "jpeg_detection_resnet_ssd_tpu")
+# The port's scripts that a user runs on the card (they import only the port).
+PROXY_SCRIPTS = ("torch_convergence_proxy", "torch_cls_convergence_proxy", "torch_quantize_eval")
 
 
 def port_modules():
@@ -58,6 +60,11 @@ def import_every_module_without(blocked):
         "import importlib\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
+        # and the proxy scripts, which parse their arguments without them
+        f"sys.path.insert(0, {str(REPO / 'scripts')!r})\n"
+        f"for m in {PROXY_SCRIPTS!r}:\n"
+        "    argv = ['--run-dir', 'r', '--data-root', 'd'] if m == 'torch_quantize_eval' else []\n"
+        "    importlib.import_module(m).build_parser().parse_args(argv)\n"
         # building the host chains and parsing train-detect need none of them
         "from jpeg_detection_resnet_ssd_torch.data import augment\n"
         "for chain in ('SSDDataAugmentation', 'SSDDataAugmentationNoCrop',\n"
@@ -159,7 +166,8 @@ def _imported_names(path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(str(p.relative_to(REPO)) for p in PORT_DIR.rglob("*.py")) + ["chip_smoke.py"],
+    sorted(str(p.relative_to(REPO)) for p in PORT_DIR.rglob("*.py")) + ["chip_smoke.py"]
+    + sorted(str(p.relative_to(REPO)) for p in (REPO / "scripts").glob("torch_*.py")),
 )
 def test_source_imports_nothing_of_jax(path):
     bad = [

@@ -188,3 +188,43 @@ def assert_same(got, ref):
             assert_same(g, r)
     else:
         assert got == ref
+
+
+def codec_images(seed=14):
+    """Seeded RGB images for the NumPy codec's pinned digest: noise and a
+    smooth gradient at the evaluation size, the packed frame and an odd
+    one."""
+    rng = np.random.default_rng(seed)
+    images = [rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+              for h, w in ((300, 300), (352, 352), (203, 317))]
+    yy, xx = np.mgrid[0:300, 0:300]
+    images.append(np.stack([yy * 255 // 299, xx * 255 // 299, (yy + 2 * xx) % 256], -1).astype(np.uint8))
+    return images
+
+
+def codec_digest(encode, qualities=(75, 92, 50)):
+    """SHA-256 over `encode(image, quality)`'s (Y, CbCr) bytes for every
+    `codec_images()` image at each quality."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for image in codec_images():
+        for q in qualities:
+            for a in encode(image, q):
+                h.update(np.ascontiguousarray(a, np.int32).tobytes())
+    return h.hexdigest()
+
+
+# `codec_digest` of the libjpeg path (PIL + dctjpeg) where libjpeg is
+# installed, which the NumPy codec must reproduce anywhere (tests/test_torch_numpy_codec.py,
+# tests/test_torch_cuda.py).
+CODEC_DIGEST = "cdd5a2ae7a55dbc4951aa644acb49b66999d117908f2226137227dbb7d876cb2"
+
+
+def run_proxy_script(main, capsys, argv):
+    """Run a proxy script's `main(argv)` in this process; returns its last
+    printed line parsed as JSON."""
+    import json
+
+    main([str(a) for a in argv])
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
