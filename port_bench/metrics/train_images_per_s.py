@@ -1,0 +1,6 @@
+"""Images of every training step of the window over the window's seconds
+on the host clock (the window closes with a device synchronize)."""
+
+
+def read(record):
+    return record["images"] / record["window_s"] if record.get("window_s") else None
