@@ -30,6 +30,7 @@ from torch import nn
 from jpeg_detection_resnet_ssd_torch.models import layers
 from jpeg_detection_resnet_ssd_torch.serve.folding import fold_batch_norm
 from jpeg_detection_resnet_ssd_torch.utils.device import resolve_device
+from jpeg_detection_resnet_ssd_torch.utils.profiling import span
 
 ARTIFACT_NAME = "model.pt2"
 MANIFEST_NAME = "manifest.json"
@@ -53,11 +54,15 @@ class ServingModule(nn.Module):
 
     def forward(self, *inputs: torch.Tensor) -> torch.Tensor:
         args = inputs[0] if len(inputs) == 1 else inputs
-        # Serving has no backward; the filter-gradient kernel's autograd
-        # Function cannot be exported.
-        with layers.pallas_wgrad(False):
-            out = self.model(args)
-        return out if self.decode_fn is None else self.decode_fn(out)
+        with span("serve"):
+            # Serving has no backward; the filter-gradient kernel's autograd
+            # Function cannot be exported.
+            with span("forward"), layers.pallas_wgrad(False):
+                out = self.model(args)
+            if self.decode_fn is None:
+                return out
+            with span("decode"):
+                return self.decode_fn(out)
 
 
 def build_serving_fn(

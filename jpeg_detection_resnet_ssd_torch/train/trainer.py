@@ -74,6 +74,7 @@ from jpeg_detection_resnet_ssd_torch.parallel.mesh import (
     model_sum,
 )
 from jpeg_detection_resnet_ssd_torch.utils.device import resolve_device
+from jpeg_detection_resnet_ssd_torch.utils.profiling import span
 
 
 _MASK64 = (1 << 64) - 1
@@ -226,28 +227,32 @@ class Trainer:
         `generator` goes to the augment hook, `dropout_generator` to the
         model's train-mode dropout (a model with dropout needs one).  With a
         mesh, `batch` is this rank's data index's rows of the global batch."""
-        with data_parallel(self.mesh):
+        with span("train_step"), data_parallel(self.mesh):
             return self._train_step(batch, generator, dropout_generator)
 
     def _train_step(self, batch, generator, dropout_generator) -> dict:
         if self.augment_fn is not None:
-            batch = self.augment_fn(batch, generator)
+            with span("augment"):
+                batch = self.augment_fn(batch, generator)
         batch = dict(batch)
         inputs = self._inputs(batch["inputs"])
         if "labels" in batch:
             batch["labels"] = self._as_device(batch["labels"])
         elif self.target_encoder is not None and "targets" not in batch:
-            with torch.no_grad():
+            with torch.no_grad(), span("encode"):
                 batch["targets"] = self.target_encoder(batch.pop("gt"), batch.pop("gt_mask"))
         else:
             batch["targets"] = self._as_device(batch["targets"])
 
         self.model.train(not self.freeze_bn)
-        with layers.pallas_wgrad(self.pallas_wgrad), layers.dropout_rng(dropout_generator):
+        with (span("forward"), layers.pallas_wgrad(self.pallas_wgrad),
+              layers.dropout_rng(dropout_generator)):
             outputs = self.model(inputs)
-        loss, metrics = self.loss_fn(self.model, outputs, batch)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss.backward()
+        with span("loss"):
+            loss, metrics = self.loss_fn(self.model, outputs, batch)
+        with span("backward"):
+            self.optimizer.zero_grad(set_to_none=True)
+            loss.backward()
         metrics = {k: v.detach() for k, v in metrics.items()}
         metrics.setdefault("total_loss", loss.detach())
         mesh = active_mesh()
@@ -257,11 +262,12 @@ class Trainer:
             summed = all_reduce_sum(torch.stack([metrics[k].float() for k in names]), mesh)
             metrics = {k: summed[i].to(metrics[k].dtype) for i, k in enumerate(names)}
         broadcast_replicated_gradients(self.model)
-        if self.schedule is not None:
-            lr = float(self.schedule(self.step))
-            for group in self.optimizer.param_groups:
-                group["lr"] = lr
-        self.optimizer.step()
+        with span("optimizer"):
+            if self.schedule is not None:
+                lr = float(self.schedule(self.step))
+                for group in self.optimizer.param_groups:
+                    group["lr"] = lr
+            self.optimizer.step()
         self.step += 1
         return metrics
 
