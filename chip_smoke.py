@@ -62,7 +62,7 @@ JPEG codec (`data/dct_convert.py`, bit-exact with the libjpeg path).
 
 Phases (any failure exits non-zero):
   1. card name and power limit (nvidia-smi);
-  2. build the four kernels from the sources in the checkout, one nvcc each,
+  2. build the five kernels from the sources in the checkout, one nvcc each,
      all started together; print ptxas' registers, shared memory, spills;
   3. NMS kernel against its plain version at the serving shape (N=640,
      K=400), a ragged one and K=4096, with pairs at IoU exactly the
@@ -87,6 +87,17 @@ Phases (any failure exits non-zero):
      coefficients within 1e-5 (1e-4 pixel_hsv) of the largest CPU value;
      requantized, at most 1e-4 of them one quantizer step apart; flip
      launches read around the card's run;
+  5d. train-mode BatchNorm kernels against their plain version (y, running
+     statistics, step counter, dx, dweight, dbias) at the detector's 12
+     BatchNorm shapes at batch 256 in bf16, three in float32, a 1x1 map, 3
+     channels, a view 2 bytes past an aligned base, constant channels (0.1,
+     inexact, its float32 tolerance widened by the rsqrt's conditioning;
+     3.0, exact), frozen statistics and momentum=None; a second call gives
+     the same bits; in float32 both held to the plain version in float64;
+     then forward and backward of each shape timed behind a device sleep on
+     inputs that cycle through 4x the L2, beside the two-pass bound (16
+     bytes an element), ATen's `native_batch_norm` and the plain version, at
+     least 60% of the bound at the largest; the host's microseconds a call;
   6. inference: a batch-32 bf16 and a batch-1 f32 request through both
      candidate selectors, NMS launch count read around them; kernel and
      plain NMS give identical detections; the f32 forward agrees with the
@@ -94,7 +105,7 @@ Phases (any failure exits non-zero):
   7. training: `fit` for 5 steps into a temporary run directory, on
      batches whose images each carry the two GT boxes of `bench.py`'s train
      rows; kernel launch counts reset just before and read just after
-     (matching 1 and filter gradient 24 per step), and the bf16 wrapper's
+     (matching 1, filter gradient 24 and BatchNorm 424 per step), and the bf16 wrapper's
      padding copies; losses finite; the checkpoint restores to the same
      step and weights;
   7b. training with device augmentation: `fit` for 5 steps on 44-block
@@ -212,9 +223,12 @@ Phases (any failure exits non-zero):
      worker processes (this script with `--dp-worker`) share the card over
      gloo and take 2 float32 steps (TF32 off) of `ssd300_ssd_custom` at a
      global batch of 32, 16 rows a rank, through B2, the v3 augment's B3
-     and B4, against one process on the global batch (loss 1e-4, parameters
-     1e-3 of the largest, the ranks bit-identical; launches read in each
-     rank: B2 1, B3 2, B4 24 a step); phase 9e's `train-detect` command in a
+     and B4 and train-mode BatchNorm's kernels (each direction's totals
+     all-reduced), against one process on the global batch (loss 1e-4,
+     parameters 1e-3 of the largest, the ranks bit-identical; launches read
+     in each rank: B2 1, B3 2, B4 24, BatchNorm 564 a step), and that one
+     process's step on BatchNorm's plain version as a witness (first loss
+     1e-6, parameters 1e-3 of the largest); phase 9e's `train-detect` command in a
      subprocess under `torchrun`'s environment for a world of 1 (NCCL) at
      batch 32 bf16, 3 steps, then `--restart` for 6 more (launches read in
      the subprocess, warm steps/s from the restart's second epoch, since each
@@ -226,7 +240,7 @@ Phases (any failure exits non-zero):
      card (this script with `--dp-worker`), each arm held to one process
      on the global batch (loss 1e-4, parameters 1e-3 of the largest, the
      ranks' gathered states bit-identical, B2 1, B3 2, B4 24 launches a
-     step a rank): a 1x2 mesh at the 1024 rule for 2 steps (against phase
+     step a rank, BatchNorm's 424, or 564 on the 2x2 mesh's 2 data ranks): a 1x2 mesh at the 1024 rule for 2 steps (against phase
      9i's one process; 38,352,622 parameters a rank), a 2x2 mesh for 1
      step, a 1x2 mesh at a 512 rule for 1 step with every B4 launch held to
      its plain version (1e-4), 3 of them on 256-column output slices; then
@@ -253,11 +267,14 @@ Phases (any failure exits non-zero):
      `train-detect --vgg`'s 3 steps (B1: of 9g's three decodes), and for B4
      the per-step times at ssd300_vgg_dct's 13 shapes and the wide maps';
      B1's entry with a `serve` part: its launches inside 9h's artifact;
-     B2's, B3's and B4's with a `data_parallel` part: each rank's launches
-     in 9i's 2-rank step; every entry with a `tensor_parallel` part: each
+     B2's, B3's, B4's and BatchNorm's with a `data_parallel` part: each
+     rank's launches in 9i's 2-rank step; every entry with a `tensor_parallel` part: each
      rank's launches in each arm of 9j, B1's in its decode; B1's, B2's and
      B3's with a `proxy` part: their launches in 9k, B3's also in the
-     classification proxy), the card line, and the final JSON line.
+     classification proxy; the BatchNorm entry first: its launches in phase
+     7, phase 5d's per-step times, those at the largest shape and the host's
+     microseconds a call), the card
+     line, and the final JSON line.
 
 Weights are the port's seeded init (torch.Generator seeded 0); for inference
 the BatchNorm running statistics are calibrated on the batch-32 request (one
@@ -273,12 +290,14 @@ import copy
 import functools
 import io
 import json
+import math
 import os
 import shutil
 import subprocess
 import sys
 import tempfile
 import time
+import types
 
 import numpy as np
 import torch
@@ -289,7 +308,7 @@ H100_F32_FLOPS = 67e12  # float32 outside the tensor cores, same source
 H100_BF16_FLOPS = 989e12  # bf16 dense on the tensor cores, same source
 H100_L2_BYTES = 50 * 2**20  # L2 cache, same source
 NMS_OPS_PER_PAIR = 16  # 2x(min, max, sub, add d, max 0), mul, add, sub, max, div, cmp
-KERNELS = ("batched_nms", "bipartite_match", "conv3x3_wgrad", "dct_flip")
+KERNELS = ("batch_norm", "batched_nms", "bipartite_match", "conv3x3_wgrad", "dct_flip")
 # The GT of every image in the JAX package's train benchmark (`bench.py:136-140`):
 # (class, xmin, ymin, xmax, ymax) in pixels of the 300x300 image.  The train
 # batches that `fit` and the step timings run carry the same two boxes.
@@ -311,6 +330,20 @@ WGRAD_RAGGED = (
     (32, 38, 38, 128, 100), (32, 38, 38, 128, 150), (32, 19, 19, 256, 100), (32, 19, 19, 256, 150),
     (3, 7, 9, 40, 24), (1, 1, 1, 256, 100), (1, 3, 3, 256, 100),
 )
+
+# The train-mode BatchNorm inputs of one `ssd_custom` step at batch 256:
+# (H, C, count), 71 in all; the first BatchNorm of each input plane sees
+# the model's inputs, which need no gradient.
+BN_SHAPES = (
+    (38, 384, 9), (38, 256, 6), (38, 128, 8), (38, 64, 1), (19, 512, 3), (19, 384, 2),
+    (19, 256, 4), (19, 128, 9), (10, 1024, 7), (10, 256, 12), (5, 2048, 4), (5, 512, 6),
+)
+BN_INPUT_LAYERS = 2
+# Launches a detector step: 3 a forward; 3 a backward, 2 where x needs no gradient.
+BN_LAUNCHES_PER_STEP = 3 * 71 + 3 * (71 - BN_INPUT_LAYERS) + 2 * BN_INPUT_LAYERS
+# The same on a rank of a mesh of 2+ data ranks: 4 each way (a rank's totals
+# before the all-reduce), 2 where x needs no gradient.
+BN_MESH_LAUNCHES_PER_STEP = 4 * 71 + 4 * (71 - BN_INPUT_LAYERS) + 2 * BN_INPUT_LAYERS
 
 
 def card_line() -> str:
@@ -439,6 +472,94 @@ def wgrad_bound(p: int, c: int, k: int, dtype: torch.dtype) -> tuple[float, str]
 def flip_bound(x: torch.Tensor) -> tuple[float, str]:
     """Read x once, write the flipped copy once; no arithmetic to speak of."""
     return 2 * x.numel() * x.element_size() / H100_BYTES_PER_S * 1e3, "bytes"
+
+
+def batch_norm_bound(x: torch.Tensor) -> tuple[float, float, str]:
+    """The two-pass design's bytes, ms forward and backward: the forward
+    reads x twice (statistics, apply) and writes y, the backward reads x and
+    dy twice and writes dx: 16 bytes an element in bfloat16.  A few float32
+    operations an element, far below that."""
+    n = x.numel() * x.element_size()
+    return 3 * n / H100_BYTES_PER_S * 1e3, 5 * n / H100_BYTES_PER_S * 1e3, "bytes"
+
+
+def bn_params(c: int, gen: torch.Generator, dev) -> dict:
+    """Seeded BatchNorm parameters and running statistics of `c` channels on `dev`."""
+    return {"weight": (1 + 0.1 * torch.randn(c, generator=gen)).to(dev),
+            "bias": (0.1 * torch.randn(c, generator=gen)).to(dev),
+            "running_mean": (0.1 * torch.randn(c, generator=gen)).to(dev),
+            "running_var": (1 + torch.rand(c, generator=gen)).to(dev),
+            "num_batches_tracked": torch.tensor(3, device=dev)}
+
+
+def bn_run(impl: str, x: torch.Tensor, params: dict, dy: torch.Tensor, momentum=0.01,
+           update=True) -> dict:
+    """One train-mode BatchNorm forward and backward of x by `impl`, on
+    copies of `params`: y, the moved state, dx, dweight and dbias."""
+    from jpeg_detection_resnet_ssd_torch.ops import batch_norm
+
+    p = {k: v.clone() for k, v in params.items()}
+    x = x.detach().clone().requires_grad_(True)
+    w, b = p["weight"].requires_grad_(True), p["bias"].requires_grad_(True)
+    y = batch_norm.batch_norm_train(x, w, b, p["running_mean"], p["running_var"],
+                                    p["num_batches_tracked"], momentum, 1e-3, update=update, impl=impl)
+    y.backward(dy)
+    return {"y": y.detach(), "running_mean": p["running_mean"], "running_var": p["running_var"],
+            "num_batches_tracked": p["num_batches_tracked"], "dx": x.grad, "dweight": w.grad,
+            "dbias": b.grad}
+
+
+def _sums_exactly(v: torch.Tensor) -> torch.Tensor:
+    """Per column of the float32 values v (rows, C): whether every partial
+    sum, in any order, is a float32 (each a multiple of the smallest bit
+    that any value holds, none 2^24 of them or more)."""
+    mant, exp = torch.frexp(v.double())
+    bits = (mant * 2.0 ** 24).long()
+    low = torch.where(bits != 0, (bits & -bits).double() * torch.exp2(exp.double() - 24),
+                      torch.full_like(mant, float("inf"))).amin(0)
+    return v.double().abs().sum(0) < 2.0 ** 24 * low
+
+
+def bn_conditioning(x: torch.Tensor, eps: float = 1e-3) -> torch.Tensor:
+    """Per channel of x, how far float32 rounding moves rsqrt(var + eps), as
+    a share of it: E[x^2] - E[x]^2 takes three float32 sums' errors, each
+    about log2(M) roundings (u = 2^-24) of E[x^2] (the plain version sums in
+    a tree, the kernels a few rows a thread, then a tree), and rsqrt halves
+    a relative change of var + eps:  3 log2(M) u E[x^2] / (2 (var + eps)).
+    Large on a near-constant channel of mean^2 >> eps (0.1: ~10x a
+    centred channel's), small elsewhere; 0 where float32 sums x and x^2
+    exactly in any order (a constant 3.0)."""
+    x32 = x.float().reshape(-1, x.shape[-1])
+    xf = x32.double()
+    exact = _sums_exactly(x32) & _sums_exactly(x32.square())
+    ex2 = xf.square().mean(0)
+    var = (ex2 - xf.mean(0).square()).clamp_min(0.0)
+    rounds = 3 * math.ceil(math.log2(xf.shape[0])) * 2.0 ** -24
+    return torch.where(exact, 0.0, rounds * ex2 / (2 * (var + eps))).float()
+
+
+def bn_gaps(got: dict, ref: dict, kappa: torch.Tensor | None = None) -> dict:
+    """Each output's worst |kernel - plain| over its tolerance: a bfloat16
+    tensor (y, dx) may differ by one rounding of float32 values that agree
+    to float32 summation order, 2^-7 |ref| + 1e-4 max |ref|; a float32 one
+    by 1e-5 max |ref| (sums of up to 370k terms in another order), and the
+    float32 y, dx and dweight, which scale with rsqrt(var + eps), also by
+    `kappa` (`bn_conditioning` of x, a channel) of |ref|; the step counter
+    not at all."""
+    out = {}
+    for k, r in ref.items():
+        g = got[k]
+        if k == "num_batches_tracked":
+            out[k] = 0.0 if int(g) == int(r) else np.inf
+            continue
+        g, r = g.float(), r.float()
+        scale = float(r.abs().max())
+        bf16 = ref[k].dtype == torch.bfloat16
+        tol = (2 ** -7 * r.abs() + 1e-4 * scale) if bf16 else torch.full_like(r, 1e-5 * scale)
+        if kappa is not None and not bf16 and k in ("y", "dx", "dweight"):
+            tol = tol + kappa.to(r.device) * r.abs()
+        out[k] = float(((g - r).abs() / tol.clamp_min(1e-30)).max())
+    return out
 
 
 def calibrate_batch_norm(model, inputs) -> None:
@@ -674,6 +795,206 @@ def check_flip(dev) -> float:
         check(dct_flip.LAUNCHES == before + 1 and torch.equal(got.view(bits), ref.view(bits)),
               f"flip {tuple(shape)} {str(dtype)[6:]}: kernel equals its plain version bit for bit")
     return worst
+
+
+def check_batch_norm(dev) -> float:
+    """The kernels against the plain version: every detector BatchNorm shape
+    at batch 256 in bfloat16, three in float32, a 1x1 map, 3 channels (the
+    scalar path), an unaligned view, constant channels (one of 0.1, whose
+    sums are inexact, so its variance may be clipped at 0 and its rsqrt
+    takes that difference's rounding: `bn_conditioning`), frozen
+    statistics, momentum=None and repeatability.  In float32 both are also
+    held to the plain version in float64, the kernels within the float32
+    tolerance and no further from it than twice the plain version.
+    Returns the worst gap (1 = at the tolerance)."""
+    from jpeg_detection_resnet_ssd_torch.ops import batch_norm
+
+    gen = torch.Generator().manual_seed(11)
+    worst = 0.0
+    cases = [((256, h, h, c), torch.bfloat16) for h, c, _ in BN_SHAPES]
+    cases += [((256, 38, 38, 384), torch.float32), ((256, 10, 10, 1024), torch.float32),
+              ((256, 5, 5, 2048), torch.float32), ((256, 1, 1, 256), torch.bfloat16),
+              ((4, 9, 7, 3), torch.float32), ((3, 5, 5, 100), torch.bfloat16)]
+    for shape, dtype in cases:
+        c = shape[-1]
+        x = (2 * torch.randn(shape, generator=gen) + torch.randn(c, generator=gen)).to(dev, dtype)
+        x[..., 1], x[..., 2] = 0.1, 3.0  # constant: inexact sums; exact, a variance of 0
+        dy = torch.randn(shape, generator=gen).to(dev, dtype)
+        params = bn_params(c, gen, dev)
+        kappa = bn_conditioning(x)
+        before = batch_norm.LAUNCHES
+        got = bn_run("kernel", x, params, dy)
+        torch.cuda.synchronize()
+        launches = batch_norm.LAUNCHES - before
+        again = bn_run("kernel", x, params, dy)
+        plain = bn_run("reference", x, params, dy)
+        gaps = bn_gaps(got, plain, kappa)
+        worst = max(worst, *gaps.values())
+        check(launches == 6 and max(gaps.values()) <= 1.0
+              and all(torch.equal(got[k], again[k]) for k in got),
+              f"batch norm {shape} {str(dtype)[6:]}: 6 launches, every output within its tolerance "
+              f"(worst {max(gaps, key=gaps.get)} at {max(gaps.values()):.3g}), a second call gives "
+              f"the same bits")
+        if dtype == torch.float32:
+            exact = bn_run("reference", x.double(), {k: v.double() if v.is_floating_point() else v
+                                                     for k, v in params.items()}, dy.double())
+            k64, p64 = bn_gaps(got, exact, kappa), bn_gaps(plain, exact, kappa)
+            worst_k = max(k64, key=k64.get)
+            check(max(k64.values()) <= max(1.0, 2 * max(p64.values())),
+                  f"batch norm {shape} float32 against float64: kernels' worst {worst_k} "
+                  f"{k64[worst_k]:.3g}, plain version's worst {max(p64, key=p64.get)} "
+                  f"{max(p64.values()):.3g} (each {{" + ", ".join(
+                      f"{k}: {k64[k]:.2g}/{p64[k]:.2g}" for k in k64) + "})")
+    x = torch.randn(2 * 19 * 19 * 128 + 1, generator=gen).to(dev, torch.bfloat16)[1:].view(2, 19, 19, 128)
+    dy = torch.randn(2, 19, 19, 128, generator=gen).to(dev, torch.bfloat16)
+    params = bn_params(128, gen, dev)
+    gaps = bn_gaps(bn_run("kernel", x, params, dy), bn_run("reference", x, params, dy))
+    worst = max(worst, *gaps.values())
+    check(max(gaps.values()) <= 1.0, f"batch norm on a view 2 bytes past an aligned base (scalar "
+                                     f"loads): worst gap {max(gaps.values()):.3g}")
+    x = torch.randn(8, 10, 10, 64, generator=gen).to(dev, torch.bfloat16)
+    dy = torch.randn(8, 10, 10, 64, generator=gen).to(dev, torch.bfloat16)
+    params = bn_params(64, gen, dev)
+    got = bn_run("kernel", x, params, dy, update=False)
+    check(all(torch.equal(got[k], params[k]) for k in ("running_mean", "running_var",
+                                                       "num_batches_tracked")),
+          "batch norm, statistics frozen: running statistics and step counter unchanged")
+    gaps = bn_gaps(bn_run("kernel", x, params, dy, momentum=None),
+                   bn_run("reference", x, params, dy, momentum=None))
+    worst = max(worst, *gaps.values())
+    check(max(gaps.values()) <= 1.0, f"batch norm, momentum=None (factor 1 / 4): worst gap "
+                                     f"{max(gaps.values()):.3g}")
+    return worst
+
+
+def time_batch_norm(dev, card) -> dict:
+    """Forward and backward of each detector BatchNorm shape at batch 256
+    bf16, queued behind a device sleep on inputs that cycle through copies
+    holding 4x the L2 (so every call reads main memory, whatever its size),
+    against the bound, ATen's own train-mode BatchNorm on the channels_last
+    view (`native_batch_norm` and its backward, as `library_ms`: Welford
+    statistics and a running variance of another function, so timed, not
+    compared) and the plain version; then the host's cost of a call."""
+    from jpeg_detection_resnet_ssd_torch.ops import batch_norm
+
+    gen = torch.Generator().manual_seed(12)
+    sums = {"ms": 0.0, "bound_ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0}
+    largest = None
+    aten = torch.ops.aten
+    print(f"    train-mode BatchNorm per detector shape, batch 256 bf16 (forward / backward ms)  [{card}]")
+    for h, c, count in BN_SHAPES:
+        shape = (256, h, h, c)
+        x = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+        dy = torch.randn(shape, generator=gen).to(dev, torch.bfloat16)
+        pair = torch.stack([x, dy])  # one input for queued_ms' copies: x, then dy
+        p = bn_params(c, gen, dev)
+        w, b = p["weight"].requires_grad_(True), p["bias"].requires_grad_(True)
+        state = (p["running_mean"], p["running_var"], p["num_batches_tracked"], 0.01, 1e-3)
+        row = {}
+
+        def forward(xi, impl="kernel"):
+            with torch.no_grad():
+                return batch_norm.batch_norm_train(xi, w, b, *state, impl=impl)
+
+        saved = types.SimpleNamespace(save_for_backward=lambda *t: setattr(saved, "t", t))
+        with torch.no_grad():  # the forward's (4, C) statistics, as the backward reads them
+            batch_norm._TrainBatchNorm.forward(saved, x, w, b, p["running_mean"], p["running_var"],
+                                               p["num_batches_tracked"], 0.01, True, 1e-3, None)
+        stats = saved.t[1]
+        xr = x.clone().requires_grad_(True)
+        row["fwd"], row["fwd_s"] = queued_ms(forward, x, iters=20)
+        row["bwd"], row["bwd_s"] = queued_ms(
+            lambda xd: batch_norm._backward(xd[0], xd[1], stats, (), None, True), pair, iters=20)
+        nchw = lambda t: t.permute(0, 3, 1, 2)  # noqa: E731  (channels_last: the same memory)
+        try:
+            _, mean, invstd = aten.native_batch_norm(
+                nchw(x), w.detach(), b.detach(), p["running_mean"].clone(),
+                p["running_var"].clone(), True, 0.01, 1e-3)
+            row["lib_fwd"], _ = queued_ms(lambda xi: aten.native_batch_norm(
+                nchw(xi), w.detach(), b.detach(), p["running_mean"], p["running_var"], True, 0.01,
+                1e-3)[0], x, iters=20)
+            row["lib_bwd"], _ = queued_ms(lambda xd: aten.native_batch_norm_backward(
+                nchw(xd[1]), nchw(xd[0]), w.detach(), p["running_mean"], p["running_var"], mean,
+                invstd, True, 1e-3, [True, True, True])[0], pair, iters=20)
+        except (RuntimeError, TypeError, NotImplementedError) as e:  # no mixed-type path: say so
+            print(f"    ATen native_batch_norm at {shape} bf16 with float32 parameters: {e}")
+            row["lib_fwd"] = row["lib_bwd"] = float("nan")
+        y = batch_norm.batch_norm_train(xr, w, b, *state, impl="reference")
+        row["plain_fwd"], _ = timed(lambda: forward(xr, "reference"), 3, warmup_s=0.1)
+        row["plain_bwd"], _ = timed(lambda: torch.autograd.grad(y, (xr, w, b), dy,
+                                                                retain_graph=True), 3, warmup_s=0.1)
+        del y, xr, pair
+        f_bound, b_bound, by = batch_norm_bound(x)
+        sums["ms"] += count * (row["fwd"] + row["bwd"])
+        sums["bound_ms"] += count * (f_bound + b_bound)
+        sums["plain_ms"] += count * (row["plain_fwd"] + row["plain_bwd"])
+        sums["library_ms"] += count * (row["lib_fwd"] + row["lib_bwd"])
+        print(f"    {shape} x{count}: kernel {row['fwd']:.5f} {row['fwd_s']} / {row['bwd']:.5f} "
+              f"{row['bwd_s']} = {100 * f_bound / row['fwd']:.1f}% / {100 * b_bound / row['bwd']:.1f}% "
+              f"of the bound {f_bound:.5f} / {b_bound:.5f} ({by}); ATen native_batch_norm "
+              f"{row['lib_fwd']:.5f} / {row['lib_bwd']:.5f}; plain {row['plain_fwd']:.4f} / "
+              f"{row['plain_bwd']:.4f}")
+        if largest is None:
+            largest = {"shape": list(shape), "forward_ms": row["fwd"], "backward_ms": row["bwd"],
+                       "forward_bound_ms": f_bound, "backward_bound_ms": b_bound,
+                       "library_forward_ms": row["lib_fwd"], "library_backward_ms": row["lib_bwd"],
+                       "plain_forward_ms": row["plain_fwd"], "plain_backward_ms": row["plain_bwd"]}
+            check(f_bound >= 0.6 * row["fwd"] and b_bound >= 0.6 * row["bwd"],
+                  f"batch norm at the largest shape {shape}: forward and backward each at 60% or "
+                  f"more of the bound")
+    print(f"    BatchNorm per detector train step at batch 256 (71 layers, forward + backward): "
+          f"kernel {sums['ms']:.4f} ms, {100 * sums['bound_ms'] / sums['ms']:.1f}% of the bound "
+          f"{sums['bound_ms']:.4f} ms; ATen native_batch_norm {sums['library_ms']:.4f} ms; plain "
+          f"{sums['plain_ms']:.4f} ms  [{card}]")
+    return {**sums, "bound_by": "bytes", "largest": largest, "host_us": host_batch_norm(dev, card)}
+
+
+def host_batch_norm(dev, card, layers=64, rounds=30) -> dict:
+    """The host's microseconds a train-mode BatchNorm layer: a chain of
+    `layers` BatchNorms, each with its own parameters, at (8, 5, 5, 256)
+    bf16, forward alone (no autograd) and forward then one backward through
+    the chain, as a train step runs them; the kernels take a few
+    microseconds a launch, so the host paces them.  perf_counter around
+    `rounds` chains after a warm round, one synchronize after them."""
+    from jpeg_detection_resnet_ssd_torch.ops import batch_norm
+
+    gen = torch.Generator().manual_seed(13)
+    x = torch.randn(8, 5, 5, 256, generator=gen).to(dev, torch.bfloat16).requires_grad_(True)
+    chain = []
+    for _ in range(layers):
+        p = bn_params(256, gen, dev)
+        chain.append((p["weight"].requires_grad_(True), p["bias"].requires_grad_(True),
+                      p["running_mean"], p["running_var"], p["num_batches_tracked"], 0.01, 1e-3))
+
+    def forward(impl):
+        y = x
+        for args in chain:
+            y = batch_norm.batch_norm_train(y, *args, impl=impl)
+        return y
+
+    def no_grad(impl):
+        with torch.no_grad():
+            forward(impl)
+
+    def both(impl):
+        forward(impl).float().sum().backward()
+
+    out = {}
+    for name, fn in (("forward", no_grad), ("forward_backward", both)):
+        for impl in ("kernel", "reference"):
+            for n in (1, rounds):  # the first round warms up
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for _ in range(n):
+                    fn(impl)
+                host_us = (time.perf_counter() - t0) / (n * layers) * 1e6
+                torch.cuda.synchronize()
+            out[f"{name}_{impl}"] = host_us
+    print(f"    host per BatchNorm layer, a chain of {layers} at (8, 5, 5, 256) bf16: kernels "
+          f"{out['forward_kernel']:.1f} us forward, {out['forward_backward_kernel']:.1f} us forward "
+          f"+ backward; plain version {out['forward_reference']:.1f} / "
+          f"{out['forward_backward_reference']:.1f} us  [{card}]")
+    return out
 
 
 def augment_close(got, ref, rtol, quality=None) -> tuple[bool, str]:
@@ -976,6 +1297,7 @@ def run_training(dev, card, stress_sims, stress_mask):
     from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
     from jpeg_detection_resnet_ssd_torch.models import layers
     from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
+    from jpeg_detection_resnet_ssd_torch.ops import batch_norm
     from jpeg_detection_resnet_ssd_torch.ops import bipartite_match as bm
     from jpeg_detection_resnet_ssd_torch.ops import conv_grad
     from jpeg_detection_resnet_ssd_torch.train import (
@@ -992,21 +1314,24 @@ def run_training(dev, card, stress_sims, stress_mask):
     with tempfile.TemporaryDirectory() as run_dir:
         t0 = time.perf_counter()
         bm.LAUNCHES = conv_grad.LAUNCHES = conv_grad.LAYOUT_COPIES = conv_grad.PAD_COPIES = 0
+        batch_norm.LAUNCHES = 0
         trainer, history = fit(cfg, batches, run_dir=run_dir, target_encoder=encoder,
                                log_every=1, save_every=5)
         torch.cuda.synchronize()
-        launches = {"match": bm.LAUNCHES, "wgrad": conv_grad.LAUNCHES}
+        launches = {"match": bm.LAUNCHES, "wgrad": conv_grad.LAUNCHES, "bn": batch_norm.LAUNCHES}
         copies, pads = conv_grad.LAYOUT_COPIES, conv_grad.PAD_COPIES
         print(f"    fit: {time.perf_counter() - t0:.2f} s (first step builds nothing: kernels "
               f"were built in phase 2); losses "
               + ", ".join(f"{r['total_loss']:.4f}" for r in history))
         print(f"    kernel launches on the training path: matching {launches['match']}, "
-              f"filter gradient {launches['wgrad']}; layout copies before the filter-gradient "
+              f"filter gradient {launches['wgrad']}, BatchNorm {launches['bn']}; layout copies before the filter-gradient "
               f"kernel: {copies}; padding copies for TMA: {pads} ({pads / 5:g} per step)")
         check(len(history) == 5 and all(np.isfinite(r["total_loss"]) for r in history),
               "5 steps, every loss finite")
         check(launches["match"] == 5, "the matching kernel ran once per step")
         check(launches["wgrad"] == 24 * 5, "the filter-gradient kernel ran 24 times per step")
+        check(launches["bn"] == BN_LAUNCHES_PER_STEP * 5,
+              f"the BatchNorm kernels ran {BN_LAUNCHES_PER_STEP} times per step (71 layers)")
         ckpt = CheckpointManager(os.path.join(run_dir, "checkpoints"))
         check(ckpt.all_steps() == [5], "a checkpoint was written at step 5")
         fresh, _, _ = build_trainer(cfg)
@@ -1239,6 +1564,7 @@ def run_training(dev, card, stress_sims, stress_mask):
           f"convolution_backward {cudnn_ms:.4f} ms (host clock, mean of 50)")
     return {
         "match": {"launches": launches["match"], **match_row},
+        "bn_launches": launches["bn"],
         "wgrad": {"launches": launches["wgrad"], **sums,
                   "bound_by": max(bound_by, key=bound_by.get)},
         "wgrad_step_err": step_err,
@@ -2522,6 +2848,9 @@ def run_serving(dev, card, model_f32, model_bf16, raw_f32, request, planes):
 
 DP_BATCH, DP_STEPS, DP_TIMEOUT_S = 32, 2, 300  # phase 9i's data-parallel step
 DP_LOSS_TOL, DP_PARAM_TOL = 1e-4, 1e-3
+# The first step's loss, before any update: the same weights, so a gap of
+# float32 rounding alone (the kernels' against the plain version's sums).
+DP_FIRST_LOSS_TOL = 1e-6
 
 
 def dp_batches():
@@ -2535,6 +2864,20 @@ def dp_batches():
                                rng.normal(0, 30, (DP_BATCH, 22, 22, 128)).astype(np.float32)),
                     "gt": gt, "gt_mask": mask})
     return out
+
+
+@contextlib.contextmanager
+def plain_batch_norm():
+    """Inside the block, train-mode BatchNorm in this process runs on its
+    plain version."""
+    from jpeg_detection_resnet_ssd_torch.models import layers
+
+    kernels = layers.batch_norm_train
+    layers.batch_norm_train = functools.partial(kernels, impl="reference")
+    try:
+        yield
+    finally:
+        layers.batch_norm_train = kernels
 
 
 def dp_train(n_model=1, min_features=1024, steps=DP_STEPS, record_wgrad=False):
@@ -2552,7 +2895,9 @@ def dp_train(n_model=1, min_features=1024, steps=DP_STEPS, record_wgrad=False):
     from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
     from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
     from jpeg_detection_resnet_ssd_torch.ops import bipartite_match as bm
-    from jpeg_detection_resnet_ssd_torch.ops import conv_grad, dct_flip, make_dct_detection_augment_v3
+    from jpeg_detection_resnet_ssd_torch.ops import (
+        batch_norm, conv_grad, dct_flip, make_dct_detection_augment_v3,
+    )
     from jpeg_detection_resnet_ssd_torch.parallel import mesh as pmesh
     from jpeg_detection_resnet_ssd_torch.parallel import make_mesh, shard_batch, tensor_parallel_rule
     from jpeg_detection_resnet_ssd_torch.train import (
@@ -2583,6 +2928,7 @@ def dp_train(n_model=1, min_features=1024, steps=DP_STEPS, record_wgrad=False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     bm.LAUNCHES = conv_grad.LAUNCHES = dct_flip.LAUNCHES = pmesh.MODEL_COLLECTIVES = 0
+    batch_norm.LAUNCHES = 0
     t0 = time.perf_counter()
     try:
         metrics = trainer.train_steps(batches, config.seed + 1)
@@ -2592,7 +2938,7 @@ def dp_train(n_model=1, min_features=1024, steps=DP_STEPS, record_wgrad=False):
     seconds = time.perf_counter() - t0
     out = {"loss": metrics["total_loss"].cpu(), "seconds": seconds,
            "launches": {"match": bm.LAUNCHES, "flip": dct_flip.LAUNCHES,
-                        "wgrad": conv_grad.LAUNCHES},
+                        "wgrad": conv_grad.LAUNCHES, "bn": batch_norm.LAUNCHES},
            "model_collectives": pmesh.MODEL_COLLECTIVES,
            "peak_bytes": torch.cuda.max_memory_allocated(),
            "param_bytes": sum(p.numel() * p.element_size() for p in module.parameters()),
@@ -2717,26 +3063,52 @@ def run_data_parallel(card) -> dict:
               f"{DP_STEPS} steps {ranks[0]['seconds']:.2f} / {ranks[1]['seconds']:.2f} s "
               f"(host clock, gloo stages every collective through host memory)  [{card}]")
     torch.cuda.empty_cache()
+    # The ranks and one process run train-mode BatchNorm on its kernels (the
+    # ranks all-reduce each direction's totals); the plain version's one
+    # process is the witness that the kernels' own gap is float32 rounding:
+    # its first loss (the same weights) within DP_FIRST_LOSS_TOL, its
+    # parameters within DP_PARAM_TOL; after an update the gap grows as the
+    # ranks' reordered sums make it grow (printed side by side).
     ref = dp_train()
+    with plain_batch_norm():
+        plain = dp_train()
+    plain.pop("trainer"), plain.pop("batches")
     one_process = {k: ref[k] for k in ("loss", "state", "peak_bytes", "param_bytes",
                                        "momentum_bytes")}
-    print(f"    one process, global batch {DP_BATCH}: {DP_STEPS} steps {ref['seconds']:.2f} s; "
-          f"losses {[round(float(v), 6) for v in ref['loss']]}")
     keys = [k for k, v in ref["state"].items() if v.is_floating_point()]
     largest = max(float(ref["state"][k].abs().max()) for k in keys)
-    for r, res in enumerate(ranks):
-        loss_err = float(((res["loss"] - ref["loss"]).abs() / ref["loss"].abs()).max())
+
+    def gaps(res):
+        per_step = (res["loss"] - ref["loss"]).abs() / ref["loss"].abs()
         p_err = max(float((res["state"][k] - ref["state"][k]).abs().max()) for k in keys)
-        print(f"    rank {r}: losses {[round(float(v), 6) for v in res['loss']]}, relative diff "
-              f"{loss_err:.3g}; parameters max |diff| {p_err:.3g} of max |p| {largest:.4g}; "
-              f"launches {res['launches']}")
+        return [float(v) for v in per_step], p_err
+
+    print(f"    one process, global batch {DP_BATCH}, BatchNorm on its kernels: {DP_STEPS} steps "
+          f"{ref['seconds']:.2f} s; losses {[round(float(v), 6) for v in ref['loss']]}; launches "
+          f"{ref['launches']}")
+    plain_steps, plain_p = gaps(plain)
+    print(f"    the same on the plain version: losses {[round(float(v), 6) for v in plain['loss']]}, "
+          f"relative diff by step {[f'{v:.3g}' for v in plain_steps]}; parameters max |diff| "
+          f"{plain_p:.3g} of max |p| {largest:.4g}")
+    check(plain_steps[0] <= DP_FIRST_LOSS_TOL and plain_p <= DP_PARAM_TOL * largest,
+          f"the plain version's first loss within {DP_FIRST_LOSS_TOL:g} of the kernels' and its "
+          f"parameters within {DP_PARAM_TOL:g} of the largest")
+    for r, res in enumerate(ranks):
+        rank_steps, p_err = gaps(res)
+        loss_err = max(rank_steps)
+        print(f"    rank {r}: losses {[round(float(v), 6) for v in res['loss']]}, relative diff by "
+              f"step {[f'{v:.3g}' for v in rank_steps]}; parameters max |diff| {p_err:.3g} of max "
+              f"|p| {largest:.4g}; launches {res['launches']}")
         check(loss_err <= DP_LOSS_TOL, f"rank {r}'s losses within {DP_LOSS_TOL:g} of one process's")
         check(p_err <= DP_PARAM_TOL * largest,
               f"rank {r}'s parameters within {DP_PARAM_TOL:g} of the largest")
-        check(res["launches"] == {"match": DP_STEPS, "flip": 2 * DP_STEPS, "wgrad": 24 * DP_STEPS},
-              f"rank {r} launched B2 1, B3 2 and B4 24 times a step")
+        check(res["launches"] == {"match": DP_STEPS, "flip": 2 * DP_STEPS, "wgrad": 24 * DP_STEPS,
+                                  "bn": BN_MESH_LAUNCHES_PER_STEP * DP_STEPS},
+              f"rank {r} launched B2 1, B3 2, B4 24 and the BatchNorm kernels "
+              f"{BN_MESH_LAUNCHES_PER_STEP} times a step")
     check(all(torch.equal(ranks[0]["state"][k], ranks[1]["state"][k]) for k in ref["state"]),
           "the two ranks' parameters and statistics are bit-identical")
+    del plain
 
     # 4. profile_trace around 2 steps of the reference's trainer.
     with tempfile.TemporaryDirectory() as tmp:
@@ -2755,8 +3127,9 @@ def run_data_parallel(card) -> dict:
               f"StepTimer {timer.steps_per_sec():.3f} steps/s (f32, profiler on)  [{card}]")
         check(any("wgrad_f32_kernel" in k for k in kernels)
               and any("bipartite_match_kernel" in k for k in kernels)
-              and any("dct_flip_h_kernel" in k for k in kernels),
-              "the trace holds B4's, B2's and B3's kernels")
+              and any("dct_flip_h_kernel" in k for k in kernels)
+              and any("bn_reduce_kernel" in k for k in kernels),
+              "the trace holds B4's, B2's, B3's and the BatchNorm kernels")
     del ref
     torch.cuda.empty_cache()
 
@@ -2838,11 +3211,13 @@ def run_gloo_ranks(world: int, worker_args, tmp: str) -> tuple[list, float]:
     return [torch.load(f"{out}.{r}", weights_only=False) for r in range(world)], seconds
 
 
-def hold_to_one_process(arm: str, ranks: list, ref: dict, steps: int, card: str) -> None:
+def hold_to_one_process(arm: str, ranks: list, ref: dict, steps: int, card: str,
+                        n_data: int = 1) -> None:
     """Phase 9j's checks of one arm: each rank's losses within DP_LOSS_TOL
     (relative) and whole parameters within DP_PARAM_TOL of the largest of
     one process's, the ranks' whole states bit-identical, B2 1, B3 2 and
-    B4 24 launches a step on every rank; prints each rank's launches,
+    B4 24 launches a step on every rank and the BatchNorm kernels' (4 a
+    direction on a mesh of `n_data` > 1 data ranks); prints each rank's launches,
     model-axis collectives a step, parameter and momentum bytes and peak
     memory."""
     keys = [k for k, v in ref["state"].items() if v.is_floating_point()]
@@ -2862,8 +3237,10 @@ def hold_to_one_process(arm: str, ranks: list, ref: dict, steps: int, card: str)
                                        f"process's")
         check(p_err <= DP_PARAM_TOL * largest,
               f"{arm} rank {r}'s whole parameters within {DP_PARAM_TOL:g} of the largest")
-        check(res["launches"] == {"match": steps, "flip": 2 * steps, "wgrad": 24 * steps},
-              f"{arm} rank {r} launched B2 1, B3 2 and B4 24 times a step")
+        bn = (BN_MESH_LAUNCHES_PER_STEP if n_data > 1 else BN_LAUNCHES_PER_STEP) * steps
+        check(res["launches"] == {"match": steps, "flip": 2 * steps, "wgrad": 24 * steps, "bn": bn},
+              f"{arm} rank {r} launched B2 1, B3 2, B4 24 and the BatchNorm kernels "
+              f"{bn // steps} times a step")
     check(all(torch.equal(ranks[0]["state"][k], res["state"][k])
               for res in ranks[1:] for k in ref["state"]),
           f"{arm}: the ranks' parameters (replicated, and sharded once gathered) and statistics "
@@ -3059,7 +3436,7 @@ def run_tensor_parallel(card: str, one_process: dict) -> dict:
         with tempfile.TemporaryDirectory() as tmp:
             ranks, seconds[arm] = run_gloo_ranks(world, (n_model, min_features, steps, record), tmp)
         print(f"    {arm}: {world} gloo ranks, {seconds[arm]:.1f} s with start-up")
-        hold_to_one_process(arm, ranks, ref, steps, card)
+        hold_to_one_process(arm, ranks, ref, steps, card, n_data=world // n_model)
         launches[arm] = [r["launches"] for r in ranks]
         if n_model == 2 and min_features == 1024:
             want = 51_984_110 - TP_SHARDED_PARAMS // 2
@@ -3272,6 +3649,10 @@ def main() -> int:
     print("[5c] augmentation chain: card (flip kernel, TF32 off) vs CPU, one set of host draws")
     check_chain(dev)
 
+    print("[5d] train-mode BatchNorm kernels against their plain version")
+    bn_err = check_batch_norm(dev)
+    bn_times = time_batch_norm(dev, card)
+
     nms, served = run_inference(dev, card)
     train = run_training(dev, card, stress_sims, stress_mask)
     flip = run_augmented_training(dev, card, train["trainer"], train["batch"])
@@ -3287,6 +3668,9 @@ def main() -> int:
     print(f"[10] done in {time.perf_counter() - t_start:.1f} s")
     source = "jpeg_detection_resnet_ssd_torch/ops/csrc/{}.cu"
     print(json.dumps({"kernels": [
+        {"name": "batch_norm_train", "route": "cuda", "source": source.format("batch_norm"),
+         "replaces": None, "max_gap": bn_err, "library_ms": None, "launches": train["bn_launches"],
+         **bn_times, "data_parallel": {"launches": [r["bn"] for r in dp["launches"]]}},
         {"name": "batched_nms_mask", "route": "cuda", "source": source.format("batched_nms"),
          "replaces": "jpeg_detection_resnet_ssd_tpu/ops/pallas_nms.py:114",
          "max_abs_err": nms_err, "library_ms": None, **nms,

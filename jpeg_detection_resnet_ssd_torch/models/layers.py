@@ -54,11 +54,11 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from jpeg_detection_resnet_ssd_torch.ops.batch_norm import batch_norm_train
 from jpeg_detection_resnet_ssd_torch.ops.conv_grad import conv3x3_same_wgrad
 from jpeg_detection_resnet_ssd_torch.parallel.mesh import (
     ModelShard,
     active_mesh,
-    all_reduce_sum,
     copy_to_model_group,
     gather_from_model_group,
     shard_batch,
@@ -312,23 +312,24 @@ class Dropout(nn.Module):
 class BatchNorm(nn.BatchNorm2d):
     """Keras-default BatchNormalization on NHWC (eps 1e-3, momentum 0.99).
 
-    Train mode is flax's `BatchNorm(use_running_average=False)`: statistics
-    in at least float32 over (B, H, W), the variance as E[x^2] - E[x]^2
-    clipped at 0 (biased), `y = (x - mean) * (rsqrt(var + eps) * scale) +
-    bias`, and the running statistics move by `running = 0.99 * running +
-    0.01 * batch` with that same biased variance (torch's own layer would
-    use the unbiased one), except under `running_stats_frozen()`.
-    `momentum=None` keeps torch's cumulative average (factor
-    1 / num_batches_tracked).  Eval mode normalises with the running
-    statistics.  Both return the input's dtype.
+    Train mode is flax's `BatchNorm(use_running_average=False)`
+    (`ops.batch_norm.batch_norm_train`): statistics in at least float32
+    over (B, H, W), the variance as E[x^2] - E[x]^2 clipped at 0 (biased),
+    `y = (x - mean) * (rsqrt(var + eps) * scale) + bias`, and the running
+    statistics move by `running = 0.99 * running + 0.01 * batch` with that
+    same biased variance (torch's own layer would use the unbiased one),
+    except under `running_stats_frozen()`.  `momentum=None` keeps torch's
+    cumulative average (factor 1 / num_batches_tracked).  On a CUDA input
+    it runs on the CUDA kernels of `ops/csrc/batch_norm.cu`, elsewhere on
+    the plain version.  Eval mode normalises with the running statistics.
+    Both return the input's dtype.
 
     Inside `parallel.data_parallel` with more than one data rank the
     train-mode statistics are the global batch's: the sums of x and x^2 and
-    the row count are all-reduced over the data group with autograd, so the
-    gradient flows through them, and every rank moves its running
-    statistics by the same values.  The
-    mean is sum / count there, where one process takes `mean()`, so the two
-    differ by float32 rounding only."""
+    the row count are all-reduced over the data group (and, backward, the
+    sums that the input's gradient takes from them), so the gradient flows
+    through them, and every rank moves its running statistics by the same
+    values."""
 
     def __init__(self, features: int):
         super().__init__(features, eps=BN_EPSILON, momentum=BN_MOMENTUM)
@@ -336,27 +337,10 @@ class BatchNorm(nn.BatchNorm2d):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return nchw_to_nhwc(super().forward(nhwc_to_nchw(x)))
-        xf = x.to(torch.promote_types(x.dtype, torch.float32))
-        mesh = active_mesh()
-        if mesh is None:
-            mean = xf.mean(dim=(0, 1, 2))
-            mean_sq = xf.square().mean(dim=(0, 1, 2))
-        else:
-            count = xf.new_full((1,), xf.shape[0] * xf.shape[1] * xf.shape[2])
-            sums = all_reduce_sum(torch.cat([xf.sum(dim=(0, 1, 2)),
-                                             xf.square().sum(dim=(0, 1, 2)), count]), mesh)
-            c = xf.shape[-1]
-            mean, mean_sq = sums[:c] / sums[-1], sums[c:2 * c] / sums[-1]
-        var = torch.clamp_min(mean_sq - mean.square(), 0.0)
-        if not _STATS_FROZEN:
-            with torch.no_grad():
-                self.num_batches_tracked.add_(1)
-                factor = (1.0 / float(self.num_batches_tracked) if self.momentum is None
-                          else self.momentum)
-                self.running_mean.mul_(1.0 - factor).add_(factor * mean)
-                self.running_var.mul_(1.0 - factor).add_(factor * var)
-        y = (xf - mean) * (torch.rsqrt(var + self.eps) * self.weight) + self.bias
-        return y.to(x.dtype)
+        return batch_norm_train(
+            x, self.weight, self.bias, self.running_mean, self.running_var,
+            self.num_batches_tracked, self.momentum, self.eps, update=not _STATS_FROZEN,
+            mesh=active_mesh())
 
 
 class L2Normalization(nn.Module):

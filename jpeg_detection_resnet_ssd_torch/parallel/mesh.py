@@ -16,8 +16,8 @@ B/n_data)` of the global batch of B rows, and the reductions over the batch
 are made global over the data group where they happen:
 
   * train-mode BatchNorm all-reduces its sums of x and x^2 and its row count,
-    with autograd, so the gradient flows through the global statistics
-    (`models/layers.py`);
+    and backward the sums the input's gradient takes from them, so the
+    gradient flows through the global statistics (`ops/batch_norm.py`);
   * the SSD loss all-reduces its positives and nonzero-negative counts and
     takes its hard-negative threshold from the all-gathered negative losses
     (`losses/ssd_loss.py`);

@@ -15,10 +15,15 @@ from jpeg_detection_resnet_ssd_torch.boxes import decode, geometry
 from jpeg_detection_resnet_ssd_torch.eval.map_eval import DetectionEvaluator
 from jpeg_detection_resnet_ssd_torch.boxes.anchors import AnchorSpec, build_anchors
 from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
-from jpeg_detection_resnet_ssd_torch.ops import _draws, batched_nms, bipartite_match, conv_grad, dct_flip
+from jpeg_detection_resnet_ssd_torch.ops import (
+    _draws, batch_norm, batched_nms, bipartite_match, conv_grad, dct_flip,
+)
 from jpeg_detection_resnet_ssd_torch.ops.dct_detect_augment import make_dct_detection_augment_v3
 
-from chip_smoke import write_detect_inputs
+from chip_smoke import (
+    BN_LAUNCHES_PER_STEP, bench_gt, bn_conditioning, bn_gaps, bn_params, bn_run, train_batch,
+    write_detect_inputs,
+)
 from torch_cases import (
     BORDERS, CODEC_DIGEST, N_CLASSES, assert_augment_matches, augment_source, codec_digest,
     gt_batch, nms_problems, raw_predictions, tie_sims,
@@ -562,3 +567,125 @@ def test_detection_proxy_runs_on_the_card(cuda, tmp_path, capsys):
     assert (bipartite_match.LAUNCHES, dct_flip.LAUNCHES, batched_nms.LAUNCHES) == (4, 8, 2)
     assert np.isfinite(out["final_train_loss"]) and 0.0 <= out["heldout_mAP"] <= 1.0
     assert (out["train_images"], out["test_images"]) == (8, 2)
+
+
+# The detector's BatchNorm inputs at batch 256: the largest (384 channels),
+# the widest at 38x38 (256), one a stage, and a 1x1 map.
+BN_CASES = [(256, 38, 38, 384), (256, 38, 38, 256), (256, 19, 19, 512), (256, 10, 10, 1024),
+            (256, 5, 5, 2048), (256, 1, 1, 256)]
+
+
+def _bn_inputs(shape, dtype, cuda, seed):
+    """x with a per-channel offset and two constant channels, dy, seeded
+    parameters and running statistics.  Channel 2 is 3.0 (exact sums: a
+    variance of exactly 0).  Channel 1 is 0.1, whose sums are inexact, so
+    E[x^2] - E[x]^2 may come out below 0 and be clipped; there
+    rsqrt(var + eps) takes that difference's rounding, which the order of
+    the sums moves: `chip_smoke.bn_conditioning` bounds how far, and the
+    float32 tolerance takes it."""
+    gen = torch.Generator().manual_seed(seed)
+    c = shape[-1]
+    x = (2 * torch.randn(shape, generator=gen) + torch.randn(c, generator=gen)).to(cuda, dtype)
+    x[..., 1], x[..., 2] = 0.1, 3.0
+    return x, torch.randn(shape, generator=gen).to(cuda, dtype), bn_params(c, gen, cuda)
+
+
+@pytest.mark.parametrize("shape", BN_CASES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_batch_norm_kernels_match_the_plain_version(cuda, shape, dtype):
+    """y, running mean and variance, the step counter, dx, dweight and
+    dbias within `chip_smoke.bn_gaps`' tolerances (one bf16 rounding apart;
+    float32 sums in another order); three launches each way; a second call
+    gives the same bits."""
+    x, dy, params = _bn_inputs(shape, dtype, cuda, seed=shape[-1])
+    before = batch_norm.LAUNCHES
+    got = bn_run("kernel", x, params, dy)
+    torch.cuda.synchronize()
+    assert batch_norm.LAUNCHES == before + 6
+    assert got["y"].dtype == got["dx"].dtype == dtype and got["dweight"].dtype == torch.float32
+    gaps = bn_gaps(got, bn_run("reference", x, params, dy), bn_conditioning(x))
+    assert max(gaps.values()) <= 1.0, gaps
+    again = bn_run("kernel", x, params, dy)
+    assert all(torch.equal(got[k], again[k]) for k in got)
+
+
+def test_batch_norm_kernels_frozen_and_cumulative(cuda):
+    """Under `running_stats_frozen()` (update=False) the state stays as it
+    was, bit for bit; with momentum=None the factor is 1 / the new count."""
+    x, dy, params = _bn_inputs((8, 10, 10, 64), torch.bfloat16, cuda, seed=3)
+    got = bn_run("kernel", x, params, dy, update=False)
+    for k in ("running_mean", "running_var", "num_batches_tracked"):
+        assert torch.equal(got[k], params[k])
+    assert max(bn_gaps(got, bn_run("reference", x, params, dy, update=False)).values()) <= 1.0
+    got = bn_run("kernel", x, params, dy, momentum=None)
+    assert int(got["num_batches_tracked"]) == int(params["num_batches_tracked"]) + 1
+    assert max(bn_gaps(got, bn_run("reference", x, params, dy, momentum=None)).values()) <= 1.0
+
+
+@pytest.mark.parametrize("shape", [(4, 9, 7, 3), (3, 5, 5, 100)])
+def test_batch_norm_kernels_take_ragged_channels_and_views(cuda, shape):
+    """C = 3 and 100 (no multiple of 8 bf16 channels) and a view 2 bytes past
+    an aligned base take the scalar path."""
+    x, dy, params = _bn_inputs(shape, torch.bfloat16, cuda, seed=4)
+    assert max(bn_gaps(bn_run("kernel", x, params, dy), bn_run("reference", x, params, dy)).values()) <= 1.0
+    view = torch.cat([x.new_zeros(1), x.reshape(-1)])[1:].view(shape)
+    assert view.data_ptr() % 16 != 0
+    assert max(bn_gaps(bn_run("kernel", view, params, dy), bn_run("reference", x, params, dy)).values()) <= 1.0
+
+
+def test_batch_norm_kernels_reject_what_they_do_not_take(cuda):
+    x, _, p = _bn_inputs((2, 3, 3, 64), torch.float32, cuda, seed=5)
+    state = (p["running_mean"], p["running_var"], p["num_batches_tracked"], 0.01, 1e-3)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        batch_norm.batch_norm_train(x.half(), p["weight"], p["bias"], *state, impl="kernel")
+    with pytest.raises(ValueError, match="weight"):
+        batch_norm.batch_norm_train(x, p["weight"].double(), p["bias"], *state, impl="kernel")
+    with pytest.raises(ValueError, match="num_batches_tracked"):
+        batch_norm.batch_norm_train(x, p["weight"], p["bias"], *state[:2], torch.tensor(3), *state[3:],
+                                    impl="kernel")
+    with pytest.raises(ValueError, match="weight"):
+        batch_norm.batch_norm_train(x, p["weight"].cpu(), p["bias"], *state, impl="kernel")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_batch_norm_kernels_on_two_data_ranks_equal_one_process(cuda, tmp_path, dtype):
+    """Two gloo ranks on the card, each with half of a global batch of 8 at
+    (19, 19, 256), all-reduce each direction's totals between the kernels'
+    halves (4 launches a direction); the rows they give, their summed
+    dweight and dbias and their bit-identical running statistics agree
+    with one process's kernels on the global batch (3 a direction) within
+    `bn_gaps`' tolerances."""
+    import torch_dp_worker as worker
+
+    gaps, outs, (rank_launches, one_launches) = worker.batch_norm_ranks_against_one_process(
+        str(tmp_path), shape=[8, 19, 19, 256], dtype=dtype, device="cuda")
+    assert max(gaps.values()) <= 1.0, gaps
+    assert all(torch.equal(outs[0][k], outs[1][k])
+               for k in ("running_mean", "running_var", "num_batches_tracked"))
+    assert rank_launches == [8, 8] and one_launches == 6
+
+
+def test_detector_step_runs_every_batch_norm_on_the_kernels(cuda):
+    """One bf16 `ssd_custom` train step: each of the 71 train-mode BatchNorms
+    launches 3 kernels forward and 3 backward (2 for the two input
+    BatchNorms, whose input needs no gradient)."""
+    from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
+    from jpeg_detection_resnet_ssd_torch.models import layers
+    from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
+    from jpeg_detection_resnet_ssd_torch.train import ExperimentConfig, build_trainer
+
+    trainer, model, _ = build_trainer(
+        ExperimentConfig(compute_dtype="bfloat16", batch_size=2),
+        target_encoder=TargetEncoder(AnchorSpec(), ssd_predictor_sizes("resnet_custom")))
+    seen = []
+    hooks = [m.register_forward_pre_hook(lambda m, args: seen.append(args[0].requires_grad))
+             for m in model.modules() if isinstance(m, layers.BatchNorm)]
+    batch = train_batch(np.random.default_rng(6), *bench_gt(2), cuda)
+    batch_norm.LAUNCHES = 0
+    metrics = trainer.train_step(batch)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    assert len(seen) == 71 and seen.count(False) == 2
+    assert batch_norm.LAUNCHES == BN_LAUNCHES_PER_STEP == 3 * 71 + 3 * 69 + 2 * 2
+    assert np.isfinite(float(metrics["loss"]))

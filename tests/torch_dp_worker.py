@@ -498,7 +498,48 @@ def wide_steps(variables, batch, steps=2, n_model=1):
     return {"metrics": {k: v.cpu() for k, v in metrics.items()}, **_whole(trainer)}
 
 
+def batch_norm_inputs(shape=(8, 19, 19, 256), dtype="bfloat16", device="cpu", seed=0):
+    """A seeded global (x, dy) and BatchNorm state: x with a per-channel
+    offset and a constant channel of 0.1 (inexact sums), and the
+    parameters and running statistics on `device`."""
+    gen = torch.Generator().manual_seed(seed)
+    c, dt = shape[-1], getattr(torch, dtype)
+    x = (2 * torch.randn(shape, generator=gen) + torch.randn(c, generator=gen)).to(device, dt)
+    x[..., 1] = 0.1
+    dy = torch.randn(shape, generator=gen).to(device, dt)
+    state = {"weight": (1 + 0.1 * torch.randn(c, generator=gen)).to(device),
+             "bias": (0.1 * torch.randn(c, generator=gen)).to(device),
+             "running_mean": (0.1 * torch.randn(c, generator=gen)).to(device),
+             "running_var": (1 + torch.rand(c, generator=gen)).to(device),
+             "num_batches_tracked": torch.tensor(3, device=device)}
+    return x, dy, state
+
+
+def batch_norm_op(impl="auto", **kwargs):
+    """One train-mode BatchNorm (`ops.batch_norm`) forward and backward of
+    this rank's rows of `batch_norm_inputs(**kwargs)` inside
+    `data_parallel(make_mesh())`: y and dx of the rank's rows, its dweight
+    and dbias, the moved state and the kernels' launches."""
+    from jpeg_detection_resnet_ssd_torch.ops import batch_norm
+    from jpeg_detection_resnet_ssd_torch.parallel import active_mesh
+
+    x, dy, state = batch_norm_inputs(**kwargs)
+    mesh = make_mesh()
+    x = shard_batch(x, mesh).clone().requires_grad_(True)
+    w, b = state["weight"].requires_grad_(True), state["bias"].requires_grad_(True)
+    before = batch_norm.LAUNCHES
+    with data_parallel(mesh):
+        y = batch_norm.batch_norm_train(x, w, b, state["running_mean"], state["running_var"],
+                                        state["num_batches_tracked"], 0.01, 1e-3,
+                                        mesh=active_mesh(), impl=impl)
+    y.backward(shard_batch(dy, mesh))
+    out = {"y": y.detach(), "dx": x.grad, "dweight": w.grad, "dbias": b.grad,
+           **{k: state[k] for k in ("running_mean", "running_var", "num_batches_tracked")}}
+    return {"out": {k: v.cpu() for k, v in out.items()}, "launches": batch_norm.LAUNCHES - before}
+
+
 CASES = {
+    "batch_norm": batch_norm_op,
     "detect": detect_steps,
     "ssd_custom": ssd_custom_step,
     "classify": classify_steps,
@@ -547,6 +588,25 @@ def run_ranks(case, tmp_dir, procs, world=2, timeout=90, **kwargs):
         results.append(torch.load(f"{out}.{r}", weights_only=False))
         os.remove(f"{out}.{r}")
     return results
+
+
+def batch_norm_ranks_against_one_process(tmp_dir, **kw):
+    """`batch_norm_op(**kw)` on two gloo ranks and in this process on the
+    global batch: the ranks' gaps to one process (`chip_smoke.bn_gaps`: y
+    and dx their rows joined, dweight and dbias summed over the ranks, the
+    state rank 0's), the ranks' outputs and each side's launches."""
+    from chip_smoke import bn_conditioning, bn_gaps
+
+    ranks = run_ranks("batch_norm", tmp_dir, [], timeout=120, **kw)
+    one = batch_norm_op(**kw)
+    outs = [r["out"] for r in ranks]
+    joined = {**outs[0], "y": torch.cat([o["y"] for o in outs]),
+              "dx": torch.cat([o["dx"] for o in outs]),
+              "dweight": outs[0]["dweight"] + outs[1]["dweight"],
+              "dbias": outs[0]["dbias"] + outs[1]["dbias"]}
+    x = batch_norm_inputs(**{k: v for k, v in kw.items() if k != "impl"})[0]
+    return bn_gaps(joined, one["out"], bn_conditioning(x.cpu())), outs, (
+        [r["launches"] for r in ranks], one["launches"])
 
 
 def run_cli_ranks(argv, tmp_path, outs, world=2, timeout=120):
