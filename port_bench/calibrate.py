@@ -11,8 +11,10 @@ what the configuration states (network products in float8 e4m3 with bf16
 arithmetic in place of bf16; augment and target encoding in bfloat16 in
 place of float32; the decode and the top-k in bfloat16), judged by the
 same comparison against the float reference.  With `--faults`, a training
-cell also reads the fault of half the batch left out (the reference's step
-on the first half only, its mean over that half) on the control's seeds.
+cell also reads, on the control's seeds, the fault of half the batch left
+out (the reference's step on the first half only, its mean over that half)
+and that of a step that leaves the state unchanged (the program's run with
+its optimizer's step doing nothing).
 Each reading is one JSON line; `--out` appends them to a file too.  The
 benchmark's own runs never run this.
 """
@@ -65,6 +67,21 @@ def train_control(spec, seed, device, faults: bool):
         num.update(compare.state_gaps(bad, ref))
         rows.append(("half_batch", num))
     return rows
+
+
+def state_unchanged(driver, spec, seed, device):
+    """The program's compared numbers with `torch.optim.SGD.step` doing
+    nothing, as a step that returns its state unchanged."""
+    import torch
+
+    step = torch.optim.SGD.step
+    torch.optim.SGD.step = lambda self, closure=None: None
+    try:
+        out = driver.run(spec, seed=seed, seconds=0.0, trace=False, device=device,
+                         t_start=time.perf_counter())
+    finally:
+        torch.optim.SGD.step = step
+    return out["numbers"]
 
 
 def serve_control(spec, seed, device):
@@ -122,13 +139,16 @@ def main(argv=None) -> int:
         _emit({"cell": args.workload, "who": "program", "seed": seed, "numbers": out["numbers"],
                "worst": out.get("worst"),
                "setup_s": out["record"]["setup_s"], "s": time.perf_counter() - t,
-               "peak_bytes": torch.cuda.max_memory_allocated()}, args.out)
+               "peak_bytes": out["device"]["memory_peak_bytes"],
+               "reference_peak_bytes": out.get("reference_peak_bytes")}, args.out)
         torch.cuda.empty_cache()
     for i in range(args.control_seeds):
         seed = args.first_seed + 1000 + i
         t = time.perf_counter()
         rows = (train_control(spec, seed, device, args.faults) if kind == "train"
                 else serve_control(spec, seed, device))
+        if args.faults and kind == "train":
+            rows.append(("state_unchanged", state_unchanged(driver, spec, seed, device)))
         for who, numbers in rows:
             _emit({"cell": args.workload, "who": who, "seed": seed, "numbers": numbers,
                    "s": time.perf_counter() - t}, args.out)

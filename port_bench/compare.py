@@ -7,13 +7,11 @@ seeded pool slots, boxes, labels, weights and draws: its own augment (in
 float64), its own target encoding (float64), and SGD on its own network
 (float32, TF32 off).  Compared, each as a share of the reference's value:
 
-  loss_gap     the widest gap of a step's loss (the detector's limits
-               leave it out: it has no upper reading, PERF.md)
+  loss_gap     the widest gap of a step's loss
   forward_gap  the widest gap of one image's network outputs in the first
                step (train mode: BatchNorm on batch statistics), as a share
                of their norm, the worst output
-  grad_gap     the widest gap of a leaf's first-gradient norm (read; the
-               limits leave it out: it has no upper reading, PERF.md)
+  grad_gap     the widest gap of a leaf's first-gradient norm
   grad_median_gap  the median leaf's gap of its first-gradient norm
   update_gap   the widest gap of a leaf's change over the kept steps
   planes_gap   the widest gap of one image's augmented plane

@@ -12,7 +12,8 @@ the parameter change are kept; `warm_steps` more steps follow.
 The window then runs steps until `--seconds` have passed on the host clock
 and closes with `sync(torch, device)`.  After the window the program
 is freed and the plain reference repeats the kept steps from the same
-seeded inputs and draws (`compare.py`).
+seeded inputs and draws (`compare.py`); its peak memory is returned as
+`reference_peak_bytes`.
 """
 
 from __future__ import annotations
@@ -195,6 +196,8 @@ def run(spec, seed, seconds, trace, device, t_start):
     gc.collect()
     if device.type == "cuda":
         torch.cuda.empty_cache()
+    reset_peak(torch, device)
     numbers, worst = compare.train(spec, seed, W, pool, gts, prog, device)
     return {"record": record, "device": dev, "attempted": steps * B, "failed": failed,
-            "numbers": numbers, "worst": worst}
+            "numbers": numbers, "worst": worst,
+            "reference_peak_bytes": device_info(torch, 1, device)["memory_peak_bytes"]}

@@ -4,8 +4,9 @@ A step is: the network's train-mode forward (batch statistics in every
 BatchNorm), its loss (`net_<network>.py::loss`), the gradient by
 autograd, and SGD with momentum (the buffer starts at the first gradient;
 Nesterov where the configuration says) at the step's learning rate.
-Bottlenecks are recomputed in the backward pass so that a batch of 256
-fits beside nothing else on one card.
+Bottlenecks are recomputed in the backward pass so that the training
+cells' batches fit beside nothing else on one card (peak 34.8 GiB at the
+detector's 512, 22.8 GiB at the classifier's 1024, on an 80 GB H100).
 """
 
 from __future__ import annotations

@@ -32,7 +32,7 @@ def _check_schema(result, trace):
 
 @pytest.mark.parametrize("trace", [False, True])
 def test_result_line_schema(trace):
-    s = tiny.spec("resnet50_dct_rfa_thinner.serve_b256")
+    s = tiny.spec("resnet50_dct_rfa_thinner.serve_b512")
     _, result = tiny.run(s, trace=trace)
     _check_schema(result, trace)
     names = {m["name"] for m in (s["per_layer"] if trace else s["end_to_end"])}
@@ -87,7 +87,7 @@ def test_a_cell_added_as_files_alone(tmp_path, kind):
     cfg.update(name="resnet50_dct_more_channels", model="resnet50_dct_late_concat_more_channels",
                network="resnet50_dct_more_channels", input_blocks=16)
     (bench / "configs" / "resnet50_dct_more_channels.json").write_text(json.dumps(cfg))
-    base = {"serve": "serve_b256", "train": "train_v2aug_b512"}[kind]
+    base = {"serve": "serve_b512", "train": "train_v2aug_b1024"}[kind]
     mix = json.loads((bench / "traffic" / f"{base}.json").read_text())
     mix.update(batch=2, slots=1, calibration_images=2, sample_span=1, warm_batches=1, warm_steps=0,
                source_blocks=20, out_blocks=16)
@@ -124,7 +124,7 @@ def test_a_directory_without_the_program_gives_no_result(tmp_path):
     shutil.copy(core.ROOT / "BENCHMARK.json", tmp_path)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
     proc = subprocess.run([sys.executable, "port_bench/run.py", "--workload",
-                           "resnet50_dct_rfa_thinner.serve_b256", "--seed", "3", "--seconds", "1",
+                           "resnet50_dct_rfa_thinner.serve_b512", "--seed", "3", "--seconds", "1",
                            "--trace", "0"], cwd=tmp_path, capture_output=True, text=True, env=env,
                           timeout=120)
     assert proc.returncode != 0 and proc.stdout.strip() == ""

@@ -8,8 +8,8 @@ import torch
 
 from port_bench import core
 
-CELLS = ("ssd300_ssd_custom.train_v3aug_b256", "resnet50_dct_rfa_thinner.train_v2aug_b512",
-         "ssd300_ssd_custom.serve_b256", "resnet50_dct_rfa_thinner.serve_b256")
+CELLS = ("ssd300_ssd_custom.train_v3aug_b512", "resnet50_dct_rfa_thinner.train_v2aug_b1024",
+         "ssd300_ssd_custom.serve_b256", "resnet50_dct_rfa_thinner.serve_b512")
 SEED = 2**31 + 11  # larger than 32 signed bits hold
 
 
