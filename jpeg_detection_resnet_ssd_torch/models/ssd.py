@@ -17,6 +17,13 @@ The model returns the raw prediction tensor `(B, n_boxes_total,
 n_classes + 1 + 12)` = [softmax conf, loc offsets, anchor coords, variances],
 float32, from NHWC inputs; `make_inference_fn` turns it into `(B, top_k, 6)`
 detections.
+
+A forward marks its parts as the program's spans (`utils.profiling.span`,
+off unless tracing is on), in order: `trunk` (from the inputs to the map
+the neck reads: the DCT stem or the VGG blocks, and a ResNet's stage 5),
+`neck` (pool5, fc6, fc7), `extras` (the conv6-conv9 blocks) and `head`
+(the L2 normalisations of the taps and the conf/loc predictors).  Inside a
+train step or a serving call they nest in its `forward` span.
 """
 
 from __future__ import annotations
@@ -51,6 +58,7 @@ from jpeg_detection_resnet_ssd_torch.models.resnet import (
 )
 from jpeg_detection_resnet_ssd_torch.models.vgg import add_convs
 from jpeg_detection_resnet_ssd_torch.utils.device import resolve_device
+from jpeg_detection_resnet_ssd_torch.utils.profiling import span
 
 # Predictor layer base names, kept from the original VGG-SSD for weight
 # compatibility even where the source feature maps were remapped.
@@ -237,10 +245,13 @@ class _SSD300Tail(_SSDNeckMixin):
                              class_suffixed_conf_names)
 
     def _tail(self, tap: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
-        maps = [self._fc_neck(x)]
-        for idx, pad in ((6, True), (7, True), (8, False), (9, False)):
-            maps.append(self._extra_block(maps[-1], idx, pad))
-        return self.head([self.conv4_3_norm(tap), *maps])
+        with span("neck"):
+            maps = [self._fc_neck(x)]
+        with span("extras"):
+            for idx, pad in ((6, True), (7, True), (8, False), (9, False)):
+                maps.append(self._extra_block(maps[-1], idx, pad))
+        with span("head"):
+            return self.head([self.conv4_3_norm(tap), *maps])
 
 
 # The late-concat-RFA-thinner trunk of `ssd_custom`, in execution order:
@@ -299,25 +310,28 @@ class SSDResNetCustom(_SSDNeckMixin):
         y = torch.as_tensor(y, device=device).to(self.dtype)
         cbcr = torch.as_tensor(cbcr, device=device).to(self.dtype)
 
-        conv4_3 = self._run_blocks(self.bn_y_in(y), _Y_TRUNK)
-        yb = self._run_blocks(conv4_3, _Y_DOWN)
-        cb = self._run_blocks(self.bn_cbcr_in(cbcr), _CBCR)
-        conv3_3 = self._run_blocks(torch.cat([yb, cb], dim=-1), _STAGE3)
-        conv4_6 = self._run_blocks(conv3_3, _STAGE4)
-        x = self._run_blocks(conv4_6, BLOCK5)  # -> 5x5x2048
-        fc7 = self._fc_neck(x)  # 5x5x1024
-        conv6_2 = self._extra_block(fc7, 6, pad=True)  # 3x3x256
-        conv9_2 = self._extra_block(conv6_2, 9, pad=False)  # 1x1x256
-
-        sources = [
-            self.conv4_3_norm(conv4_3),
-            self.conv3_3_norm(conv3_3),
-            self.conv4_6_norm(conv4_6),
-            fc7,
-            conv6_2,
-            conv9_2,
-        ]
-        return self.head(sources)
+        with span("trunk"):
+            conv4_3 = self._run_blocks(self.bn_y_in(y), _Y_TRUNK)
+            yb = self._run_blocks(conv4_3, _Y_DOWN)
+            cb = self._run_blocks(self.bn_cbcr_in(cbcr), _CBCR)
+            conv3_3 = self._run_blocks(torch.cat([yb, cb], dim=-1), _STAGE3)
+            conv4_6 = self._run_blocks(conv3_3, _STAGE4)
+            x = self._run_blocks(conv4_6, BLOCK5)  # -> 5x5x2048
+        with span("neck"):
+            fc7 = self._fc_neck(x)  # 5x5x1024
+        with span("extras"):
+            conv6_2 = self._extra_block(fc7, 6, pad=True)  # 3x3x256
+            conv9_2 = self._extra_block(conv6_2, 9, pad=False)  # 1x1x256
+        with span("head"):
+            sources = [
+                self.conv4_3_norm(conv4_3),
+                self.conv3_3_norm(conv3_3),
+                self.conv4_6_norm(conv4_6),
+                fc7,
+                conv6_2,
+                conv9_2,
+            ]
+            return self.head(sources)
 
 
 class SSDResNetIdentical(_SSD300Tail):
@@ -351,8 +365,10 @@ class SSDResNetIdentical(_SSD300Tail):
 
     def forward(self, inputs) -> torch.Tensor:
         inputs = as_inputs(inputs, self.conv4_3_norm.gamma.device, self.dtype)
-        x, _ = self.stem(inputs)
-        return self._tail(inputs[0], self._run_blocks(x, BLOCK5))  # stage 5 -> 10x10x2048
+        with span("trunk"):
+            x, _ = self.stem(inputs)
+            x = self._run_blocks(x, BLOCK5)  # stage 5 -> 10x10x2048
+        return self._tail(inputs[0], x)
 
 
 # The VGG blocks 4 and 5 of the DCT-input VGG SSDs.
@@ -393,13 +409,14 @@ class SSDVGG(_SSD300Tail):
 
     def forward(self, x) -> torch.Tensor:
         x = as_inputs(x, self.conv1_1.weight.device, self.dtype)
-        x = (x - torch.tensor(_RGB_MEAN, dtype=x.dtype, device=x.device))[..., _TO_BGR]
-        for bi, names in enumerate(self._blocks, start=1):
-            x = relu_convs(self, names, x)
-            if bi == 4:
-                conv4_3 = x
-            if bi < 5:
-                x = max_pool(x, 2, 2, "SAME")
+        with span("trunk"):
+            x = (x - torch.tensor(_RGB_MEAN, dtype=x.dtype, device=x.device))[..., _TO_BGR]
+            for bi, names in enumerate(self._blocks, start=1):
+                x = relu_convs(self, names, x)
+                if bi == 4:
+                    conv4_3 = x
+                if bi < 5:
+                    x = max_pool(x, 2, 2, "SAME")
         return self._tail(conv4_3, x)  # the neck on 19x19
 
 
@@ -430,11 +447,13 @@ class SSDVGGDCT(_SSD300Tail):
 
     def forward(self, inputs) -> torch.Tensor:
         y, cbcr = as_inputs(inputs, self.b_norm_64.weight.device, self.dtype)
-        norm_cbcr = self.b_norm_128(cbcr)
-        x = F.relu(self.conv1_1_dct_256(self.b_norm_64(y)))
-        conv4_3 = relu_convs(self, _CONV4, x)
-        x = torch.cat([max_pool(conv4_3, 2, 2), norm_cbcr], dim=-1)  # 38 -> 19
-        return self._tail(conv4_3, relu_convs(self, _CONV5, x))
+        with span("trunk"):
+            norm_cbcr = self.b_norm_128(cbcr)
+            x = F.relu(self.conv1_1_dct_256(self.b_norm_64(y)))
+            conv4_3 = relu_convs(self, _CONV4, x)
+            x = torch.cat([max_pool(conv4_3, 2, 2), norm_cbcr], dim=-1)  # 38 -> 19
+            x = relu_convs(self, _CONV5, x)
+        return self._tail(conv4_3, x)
 
 
 class SSDVGGDCTImage(_SSD300Tail):
@@ -463,9 +482,11 @@ class SSDVGGDCTImage(_SSD300Tail):
 
     def forward(self, x) -> torch.Tensor:
         x = as_inputs(x, self.b_norm.weight.device, self.dtype)
-        x = F.relu(self.conv1_1_dct(self.b_norm(x)))  # 300 -> 38
-        conv4_3 = relu_convs(self, _CONV4, x)
-        return self._tail(conv4_3, relu_convs(self, _CONV5, max_pool(conv4_3, 2, 2, "SAME")))
+        with span("trunk"):
+            x = F.relu(self.conv1_1_dct(self.b_norm(x)))  # 300 -> 38
+            conv4_3 = relu_convs(self, _CONV4, x)
+            x = relu_convs(self, _CONV5, max_pool(conv4_3, 2, 2, "SAME"))
+        return self._tail(conv4_3, x)
 
 
 def make_inference_fn(

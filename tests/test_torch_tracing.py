@@ -1,7 +1,8 @@
 """The port's spans (`utils/profiling.py`) on the CPU: off by default, the
-train step's and the serving call's phases when on, the bounded buffer, an
-export that captures no profiler node, and the attribution of a trace's
-launches, device time, blocking calls and idle gaps to the spans."""
+train step's and the serving call's phases when on, a detector's trunk,
+neck, extras and head inside its forward, the bounded buffer, an export
+that captures no profiler node, and the attribution of a trace's launches,
+device time, blocking calls and idle gaps to the spans."""
 
 import json
 
@@ -10,6 +11,7 @@ import pytest
 import torch
 
 from jpeg_detection_resnet_ssd_torch.boxes import AnchorSpec, TargetEncoder
+from jpeg_detection_resnet_ssd_torch.models import build_model, ssd_family
 from jpeg_detection_resnet_ssd_torch.models.ssd import ssd_predictor_sizes
 from jpeg_detection_resnet_ssd_torch.serve import build_serving_fn, export_serving_artifact
 from jpeg_detection_resnet_ssd_torch.serve import load_serving_artifact
@@ -22,6 +24,10 @@ from torch_cases import gt_batch
 
 TRAIN_CHILDREN = {"detection": ["augment", "encode", "forward", "loss", "backward", "optimizer"],
                   "classification": ["augment", "forward", "loss", "backward", "optimizer"]}
+# the parts of an SSD300's forward, in order, and the families that mark them
+MODEL_SPANS = ["trunk", "neck", "extras", "head"]
+DETECTORS = ["ssd300_ssd_custom", "ssd300_vgg_dct", "ssd300_vgg", "ssd300_vgg_dct_image",
+             "ssd300_cb5_only"]
 
 
 @pytest.fixture(autouse=True)
@@ -86,7 +92,7 @@ def test_train_step_records_its_phases_under_one_root(steps, task):
     roots = [s for s in spans if s.parent == -1]
     assert [s.name for s in roots] == ["train_step"]
     root = roots[0]
-    children = sorted((s for s in spans if s.parent != -1), key=lambda s: s.start_ns)
+    children = sorted((s for s in spans if s.parent == root.seq), key=lambda s: s.start_ns)
     assert [s.name for s in children] == TRAIN_CHILDREN[task]
     for s in children:
         assert s.parent == root.seq and s.root == root.seq
@@ -97,6 +103,75 @@ def test_train_step_records_its_phases_under_one_root(steps, task):
     # tracing is off again after the block
     trainer.train_step(batch, torch.Generator().manual_seed(1))
     assert len(profiling.recorded_spans()) == len(spans)
+
+
+def _in_order_inside(spans, parent):
+    """The spans whose parent is `parent`, by start; each within it and
+    after the one before."""
+    inner = sorted((s for s in spans if s.parent == parent.seq), key=lambda s: s.start_ns)
+    for s in inner:
+        assert parent.start_ns <= s.start_ns <= s.end_ns <= parent.end_ns
+        assert s.root == parent.root
+    for a, b in zip(inner, inner[1:]):
+        assert a.end_ns <= b.start_ns
+    return [s.name for s in inner]
+
+
+@pytest.fixture
+def one_thread():
+    """One intra-op thread, so that two CPU forwards of a model are
+    bit-identical; the count before comes back afterwards."""
+    before = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(before)
+
+
+@pytest.mark.parametrize("model", ["ssd300_ssd_custom", "ssd300_vgg_dct"])
+def test_detector_train_step_marks_its_parts_inside_forward(steps, model, one_thread):
+    """The two detectors the benchmark trains: trunk, neck, extras and head
+    nested in the step's `forward`, once each, and nowhere else."""
+    if model == "ssd300_ssd_custom":
+        trainer, batch = steps["detection"]
+    else:
+        trainer, _, _ = build_trainer(
+            ExperimentConfig(model=model, compute_dtype="float32"),
+            augment_fn=lambda b, g: b, device="cpu",
+            target_encoder=TargetEncoder(AnchorSpec(), ssd_predictor_sizes(ssd_family(model)),
+                                         device="cpu"))
+        batch = steps["detection"][1]
+    with profiling.tracing(True):
+        trainer.train_step(batch, torch.Generator().manual_seed(0))
+    spans = profiling.recorded_spans()
+    (forward,) = [s for s in spans if s.name == "forward"]
+    assert _in_order_inside(spans, forward) == MODEL_SPANS
+    assert sorted(s.name for s in spans if s.name in MODEL_SPANS) == sorted(MODEL_SPANS)
+
+
+@pytest.mark.parametrize("model", DETECTORS)
+def test_detector_forward_marks_trunk_neck_extras_and_head(model, one_thread):
+    module, example = build_model(model, device="cpu")
+    x = example()  # DCT planes, or one image (RGB or the DCT image)
+    inputs = tuple(t[:1] for t in x) if isinstance(x, tuple) else x[:1]
+    with profiling.tracing(True), torch.no_grad(), profiling.span("forward"):
+        module(inputs)
+    spans = profiling.recorded_spans()
+    assert [s.name for s in spans if s.parent == -1] == ["forward"]
+    assert _in_order_inside(spans, spans[-1]) == MODEL_SPANS
+    assert len(spans) == 1 + len(MODEL_SPANS)  # nothing nested deeper
+
+
+@pytest.mark.parametrize("model", ["ssd300_ssd_custom", "ssd300_vgg_dct"])
+def test_detector_spans_off_record_nothing_and_leave_the_outputs(model, one_thread):
+    module, example = build_model(model, device="cpu")
+    inputs = tuple(t[:1] for t in example())
+    with torch.no_grad():
+        off = module(inputs)
+        assert profiling.recorded_spans() == []
+        with profiling.tracing(True):
+            on = module(inputs)
+    assert len(profiling.recorded_spans()) == len(MODEL_SPANS)
+    assert torch.equal(off, on)
 
 
 class _Net(torch.nn.Module):
